@@ -1,22 +1,33 @@
 """Smoke run of the PyTorch/CUDA port (`plonky2_tpu_torch`) on one GPU.
 
-Drives the port's main path — build, witness, prove and serialize the
-config-1 circuit (Poseidon chain, 2^12 rows, standard_recursion_config) —
-on the card, after checking each hand-written kernel against its plain
-torch version there:
+Drives the port's two main paths — build, witness, prove and serialize the
+config-1 circuit (Poseidon chain, 2^12 rows) and the config-3 circuit (51
+chained depth-32 SMT process proofs, 2^14 rows), both under
+standard_recursion_config — on the card, after checking each hand-written
+kernel against its plain torch version there:
 
-  1. device      name, power limit; fails without CUDA
-  2. build       nvcc builds plonky2_tpu_torch/csrc/*.cu
+  1. device      name, power limit, SM clock; fails without CUDA
+  2. build       nvcc builds plonky2_tpu_torch/csrc/*.cu, one process per
+                 source; ptxas's register and spill report
   3. field       csrc/goldilocks.cuh against the plain field ops
   4. K1          Poseidon kernel against the plain permutation, with both
                  MDS layers (small-entry split and generic mulmods)
-  5. K2          LDE kernel against the plain LDE
-  6. tiny        the golden tiny circuit's proof sha256
-  7. config 1    proof bytes equal the JAX package's (tests/torch_port_vectors.json)
+  5. K2          LDE kernel, bit-reversed (K2-rev) and natural (K2-nat)
+                 order, against the plain LDEs
+  6. K3          tiled four-step LDE kernel against the plain LDE, at
+                 config 3's wire and Z shapes, config 4's size, 2^20, and
+                 the odd sizes 2^15 and 2^17 (n1 != n2)
+  7. tiny        the golden tiny circuit's proof sha256
+  8. config 1    proof bytes equal the JAX package's (tests/torch_port_vectors.json)
+  9. config 3    the same, proved twice
 
 All checks are exact: field arithmetic has no rounding, so every tolerance
-is 0.  Kernel inputs cover all of [0, p), edge values included.  Each
-phase prints one line and raises on failure.  The line before the last is
+is 0.  Kernel inputs cover all of [0, p), edge values included.  Kernel
+launch counts are set to 0 just before each main path and read just after
+it.  Each kernel's bound is the larger of its bytes (each input read once,
+each output written once) over 3.35 TB/s and its 32-bit integer multiplies
+over 64 per clock per SM x 132 SMs x the card's maximum SM clock.  Each
+phase prints its lines and raises on failure.  The line before the last is
 the kernels' JSON record; the last line is the device record.
 
     python3 chip_smoke.py
@@ -76,36 +87,82 @@ def rand_field(rng, shape):
 
 
 def max_abs_err(got, want) -> float:
-    """Largest |got - want| over u64 values (0 when bit-identical)."""
+    """Largest |got - want| over u64 values (0 when bit-identical), taken
+    over the first 10^5 positions that differ."""
     from plonky2_tpu_torch.field import gl
-    a = gl.from_tensor(got).astype(object).reshape(-1)
-    b = gl.from_tensor(want).astype(object).reshape(-1)
-    if a.shape != b.shape:
-        raise AssertionError(f"shape {a.shape} != {b.shape}")
+    idx = (got != want).reshape(-1).nonzero().reshape(-1)[:100_000]
+    a = gl.from_tensor(got.reshape(-1)[idx]).astype(object)
+    b = gl.from_tensor(want.reshape(-1)[idx]).astype(object)
     return float(max((abs(int(x) - int(y)) for x, y in zip(a, b)), default=0))
 
 
 def require_equal(name: str, got, want) -> float:
     import torch
-    if got.shape != want.shape or not torch.equal(got, want):
-        err = max_abs_err(got, want) if got.shape == want.shape else float("inf")
-        raise AssertionError(f"{name}: kernel differs from plain (max |diff| {err})")
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if not torch.equal(got, want):
+        n_diff = int((got != want).sum())
+        raise AssertionError(f"{name}: kernel differs from plain at {n_diff} positions "
+                             f"(max |diff| {max_abs_err(got, want)})")
     return 0.0
 
 
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
+IMAD_PER_CLOCK_PER_SM = 64       # 32-bit integer multiply(-add), compute capability 9.0
+SMS = 132
+MULMOD_IMADS = 4                 # a 64 x 64 -> 128-bit product: four 32 x 32 -> 64 products
+
+
+def bound(nbytes: int, imads: int, sm_hz: float):
+    """(bound_ms, bound_by): the larger of the memory time and the integer
+    multiply time."""
+    mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = imads / (IMAD_PER_CLOCK_PER_SM * SMS * sm_hz) * 1e3
+    return (mem_ms, "bytes") if mem_ms >= ops_ms else (ops_ms, "operations")
+
+
+def lde_work(b: int, n: int, rate_bits: int, table_words: int):
+    """(bytes, 32-bit multiplies) of values [b, n] -> coeffs [b, n] + LDE
+    [b, n * 2^rate]: radix-2 mulmods of one inverse NTT, the 1/n scale and,
+    per coset, the coset scale and one forward NTT."""
+    log_n = n.bit_length() - 1
+    ntt_mulmods = (n // 2) * log_n
+    mulmods = ntt_mulmods + n + (1 << rate_bits) * (n + ntt_mulmods)
+    nbytes = 8 * (b * (2 * n + (n << rate_bits)) + table_words)
+    return nbytes, b * mulmods * MULMOD_IMADS
+
+
+def poseidon_work(b: int):
+    """(bytes, 32-bit multiplies) of b permutations, counted as the least
+    work plonky2's fast partial rounds need: 118 S-boxes of 4 mulmods; the
+    partial rounds' dense 11 x 11 initial layer (121 mulmods) and, in each
+    of the 22 rounds, 22 mulmods and one small-entry product; 8 full
+    small-entry MDS layers of 144 products.  A small-entry product is one
+    32-bit multiply of each half of the element."""
+    mulmods = 118 * 4 + 121 + 22 * 22
+    small = 8 * 144 + 22
+    return 8 * 12 * 2 * b, b * (mulmods * MULMOD_IMADS + small * 2)
+
+
+def _smi(query: str) -> str:
+    smi = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
 def phase_device():
+    """-> (device name, maximum SM clock in Hz)."""
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("CUDA is not available: this smoke run needs a GPU")
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    if smi.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
     log(f"[device] {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    log(smi.stdout.strip().splitlines()[0])
-    return name
+    sm_mhz = float(_smi("clocks.max.sm").split()[0])
+    log(f"[device] maximum SM clock {sm_mhz:.0f} MHz")
+    log(_smi("name,power.limit"))
+    return name, sm_mhz * 1e6
 
 
 def phase_build():
@@ -113,8 +170,12 @@ def phase_build():
     t0 = time.perf_counter()
     path = _build.build()
     _build.lib()
-    log(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)} csrc/*.cu -> "
-        f"{os.path.relpath(path, ROOT)} in {time.perf_counter() - t0:.2f} s")
+    log(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)} -c, one process per csrc/*.cu, "
+        f"linked into {os.path.relpath(path, ROOT)} in {time.perf_counter() - t0:.2f} s")
+    with open(_build.log_path()) as f:
+        for line in f:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log("[build] " + line.strip())
 
 
 def phase_field(device):
@@ -142,7 +203,7 @@ def phase_k1(device):
     from plonky2_tpu_torch.hashes import cuda_poseidon, poseidon
     rng = np.random.RandomState(1)
     out = {}
-    for b in (1 << 15, 1 << 20):
+    for b in (1 << 15, 1 << 17, 1 << 20):
         s = gl.to_tensor(rand_field(rng, (12, b)), device)
         got = cuda_poseidon.permute_cols_cuda(s)
         want = poseidon.permute_cols_plain(s)
@@ -163,24 +224,53 @@ def phase_k1(device):
     return out
 
 
+def _lde_check(tag, device, rng, kernel, plain, shapes, rate_bits, plain_reps=5):
+    """Hold an LDE kernel against its plain version at each [rows, n]:
+    -> {(rows, n, rate_bits): (max_abs_err, kernel ms, plain ms)}."""
+    from plonky2_tpu_torch.field import gl
+    out = {}
+    for rows, n in shapes:
+        v = gl.to_tensor(rand_field(rng, (rows, n)), device)
+        cg, lg = kernel(v, rate_bits)
+        cw, lw = plain(v, rate_bits)
+        require_equal(f"{tag} coeffs [{rows}, {n}]", cg, cw)
+        err = require_equal(f"{tag} LDE [{rows}, {n}]", lg, lw)
+        del cg, lg, cw, lw
+        ms = time_ms(lambda: kernel(v, rate_bits))
+        plain_ms = time_ms(lambda: plain(v, rate_bits), reps=plain_reps)
+        log(f"[{tag}] LDE [{rows}, {n}] rate {rate_bits}: coeffs and LDE bit-equal; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        out[(rows, n, rate_bits)] = (err, ms, plain_ms)
+    return out
+
+
 def phase_k2(device):
     import numpy as np
-    from plonky2_tpu_torch.field import gl
     from plonky2_tpu_torch import ntt
     from plonky2_tpu_torch.ntt import cuda_lde
     rng = np.random.RandomState(2)
-    out = {}
-    for rows, n in ((135, 4096), (20, 4096), (3, 4)):
-        v = gl.to_tensor(rand_field(rng, (rows, n)), device)
-        cg, lg = cuda_lde.lde_from_values_rev_cuda(v, 3)
-        cw, lw = ntt.lde_from_values_rev(v, 3)
-        require_equal(f"K2 coeffs [{rows}, {n}]", cg, cw)
-        err = require_equal(f"K2 LDE [{rows}, {n}]", lg, lw)
-        ms = time_ms(lambda: cuda_lde.lde_from_values_rev_cuda(v, 3))
-        plain_ms = time_ms(lambda: ntt.lde_from_values_rev(v, 3))
-        log(f"[K2] LDE [{rows}, {n}] rate 3: coeffs and LDE bit-equal; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        out[(rows, n)] = (err, ms, plain_ms)
+    rev = _lde_check("K2-rev", device, rng, cuda_lde.lde_from_values_rev_cuda,
+                     ntt.lde_from_values_rev, ((135, 4096), (20, 4096), (3, 4)), 3)
+    nat = _lde_check("K2-nat", device, rng, cuda_lde.lde_from_values_cuda,
+                     ntt.lde_from_values, ((135, 4096), (3, 4)), 3)
+    return rev, nat
+
+
+def phase_k3(device):
+    import numpy as np
+    import torch
+    from plonky2_tpu_torch import ntt
+    from plonky2_tpu_torch.ntt import cuda_lde_tiled
+    rng = np.random.RandomState(3)
+    kernel, plain = cuda_lde_tiled.lde_from_values_tiled_rev_cuda, ntt.lde_from_values_rev
+    out = _lde_check("K3", device, rng, kernel, plain, ((135, 1 << 14), (20, 1 << 14)), 3)
+    # odd log n: n1 = 2^(log n // 2) < n2, so the tiles, row groups and
+    # tables take other shapes than in the square case
+    out.update(_lde_check("K3", device, rng, kernel, plain,
+                          ((135, 1 << 15), (135, 1 << 16), (20, 1 << 17), (2, 1 << 20)), 3,
+                          plain_reps=2))
+    out.update(_lde_check("K3", device, rng, kernel, plain, ((3, 1 << 14),), 6))
+    torch.cuda.empty_cache()
     return out
 
 
@@ -204,23 +294,26 @@ def phase_tiny(device):
     log(f"[tiny] golden tiny circuit: {len(raw)} bytes, sha256 {digest} (golden)")
 
 
-def phase_config1(device):
+def phase_config(tag: str, device, build, fixture_key: str, proves: int = 2):
+    """Build, witness and prove one configuration on the card; its proof
+    bytes, cs_cap, public inputs and shape must equal the JAX fixture, and
+    every prove must give the same bytes.  -> kernel launches on the path
+    (build + first prove)."""
     import torch
     from plonky2_tpu_torch import utils
-    from plonky2_tpu_torch.bench import build_poseidon_chain
     from plonky2_tpu_torch.hashes import cuda_poseidon
-    from plonky2_tpu_torch.ntt import cuda_lde
+    from plonky2_tpu_torch.ntt import cuda_lde, cuda_lde_tiled
     from plonky2_tpu_torch.prove.prover import witness_matrix
     from plonky2_tpu_torch.serialization import serialize_proof
     with open(os.path.join(ROOT, "tests", "torch_port_vectors.json")) as f:
-        want = json.load(f)["config1"]
+        want = json.load(f)[fixture_key]
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cuda_poseidon.LAUNCHES = 0
-    cuda_lde.LAUNCHES = 0
+    cuda_poseidon.LAUNCHES = cuda_lde.LAUNCHES = cuda_lde.LAUNCHES_NAT = 0
+    cuda_lde_tiled.LAUNCHES = 0
     t0 = time.perf_counter()
-    b, inputs, _ = build_poseidon_chain(12)
+    b, inputs, meta = build()
     num_gates = b.num_gates()
     data = b.build(device=device)
     torch.cuda.synchronize()
@@ -229,33 +322,32 @@ def phase_config1(device):
     t0 = time.perf_counter()
     proof = data.prove(inputs)
     raw = serialize_proof(proof)
-    prove1_s = time.perf_counter() - t0
-    spans1 = utils.last_tree().lines()
-    launches = {"K1": cuda_poseidon.LAUNCHES, "K2": cuda_lde.LAUNCHES}
+    prove_s = [time.perf_counter() - t0]
+    spans = [utils.last_tree().lines()]
+    launches = {"K1": cuda_poseidon.LAUNCHES, "K2-rev": cuda_lde.LAUNCHES,
+                "K2-nat": cuda_lde.LAUNCHES_NAT, "K3": cuda_lde_tiled.LAUNCHES}
 
     cs_cap = [[int(x) for x in d] for d in data.verifier.cs_cap]
     if num_gates != want["num_gates"] or data.common.degree_bits != want["degree_bits"]:
-        raise AssertionError(f"config 1 shape: {num_gates} gates, 2^"
+        raise AssertionError(f"{tag} shape: {num_gates} gates, 2^"
                              f"{data.common.degree_bits} rows != fixture")
     if cs_cap != want["cs_cap"]:
-        raise AssertionError("config 1 constants/sigmas cap differs from the JAX fixture")
+        raise AssertionError(f"{tag} constants/sigmas cap differs from the JAX fixture")
     digest = hashlib.sha256(raw).hexdigest()
     if len(raw) != want["proof_len"] or digest != want["proof_sha256"]:
-        raise AssertionError(f"config 1 proof ({len(raw)} bytes, sha256 {digest}) "
+        raise AssertionError(f"{tag} proof ({len(raw)} bytes, sha256 {digest}) "
                              f"differs from the JAX fixture ({want['proof_len']} "
                              f"bytes, {want['proof_sha256']})")
     if proof.public_inputs != want["public_inputs"]:
-        raise AssertionError("config 1 public inputs differ from the JAX fixture")
-    for k, v in launches.items():
-        if v <= 0:
-            raise AssertionError(f"kernel {k} was not launched on the main path")
+        raise AssertionError(f"{tag} public inputs differ from the JAX fixture")
 
-    t0 = time.perf_counter()
-    proof2 = data.prove(inputs)
-    prove2_s = time.perf_counter() - t0
-    spans2 = utils.last_tree().lines()
-    if hashlib.sha256(serialize_proof(proof2)).hexdigest() != digest:
-        raise AssertionError("config 1 second prove gave other bytes")
+    for _ in range(proves - 1):
+        t0 = time.perf_counter()
+        again = serialize_proof(data.prove(inputs))
+        prove_s.append(time.perf_counter() - t0)
+        spans.append(utils.last_tree().lines())
+        if hashlib.sha256(again).hexdigest() != digest:
+            raise AssertionError(f"{tag} prove {len(prove_s)} gave other bytes")
     utils.profiling_disable()
     peak = torch.cuda.max_memory_allocated()
 
@@ -263,48 +355,80 @@ def phase_config1(device):
     witness_matrix(data.prover, inputs)
     witness_s = time.perf_counter() - t0
 
-    log(f"[config1] poseidon chain 2^12 ({num_gates} gates): cs_cap, "
-        f"{len(raw)} bytes and sha256 {digest} equal the JAX fixture")
-    log(f"[config1] launches on the main path (build + first prove): "
-        f"K1 {launches['K1']}, K2 {launches['K2']}")
-    log(f"[config1] build {build_s:.3f} s; witness {witness_s:.3f} s; "
-        f"prove {prove1_s:.3f} s (first), {prove2_s:.3f} s (second); "
-        f"peak device memory {peak / 2**20:.1f} MiB")
-    log("[config1] phase spans, first prove (synchronized):")
-    for line in spans1:
-        log("  " + line)
-    log("[config1] phase spans, second prove (synchronized):")
-    for line in spans2:
-        log("  " + line)
+    log(f"[{tag}] {meta['name']} 2^{data.common.degree_bits} ({num_gates} gates): "
+        f"cs_cap, public inputs, {len(raw)} bytes and sha256 {digest} equal the JAX fixture")
+    log(f"[{tag}] launches on the main path (build + first prove): "
+        + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    log(f"[{tag}] build {build_s:.3f} s; witness {witness_s:.3f} s; prove "
+        + ", ".join(f"{t:.3f} s" for t in prove_s)
+        + f"; peak device memory {peak / 2**20:.1f} MiB")
+    for i, lines in enumerate(spans):
+        log(f"[{tag}] phase spans, prove {i + 1} (synchronized):")
+        for line in lines:
+            log("  " + line)
     return launches
 
 
 def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
-    name = phase_device()
+    name, sm_hz = phase_device()
     device = torch.device("cuda", 0)
     phase_build()
     phase_field(device)
     k1 = phase_k1(device)
-    k2 = phase_k2(device)
+    k2_rev, k2_nat = phase_k2(device)
+    k3 = phase_k3(device)
     phase_tiny(device)
-    launches = phase_config1(device)
 
-    err1, ms1, plain1 = k1[1 << 15]
-    err2, ms2, plain2 = k2[(135, 4096)]
-    log(json.dumps({"kernels": [
-        {"name": "K1 poseidon permute_cols [12, 32768]", "route": "cuda",
-         "source": "plonky2_tpu_torch/csrc/poseidon.cu",
-         "replaces": "plonky2_tpu/hashes/pallas_poseidon.py:191",
-         "launches": launches["K1"], "max_abs_err": err1, "ms": ms1,
-         "plain_ms": plain1},
-        {"name": "K2 lde_from_values_rev [135, 4096] rate 3", "route": "cuda",
-         "source": "plonky2_tpu_torch/csrc/lde.cu",
-         "replaces": "plonky2_tpu/ntt/pallas_lde.py:316",
-         "launches": launches["K2"], "max_abs_err": err2, "ms": ms2,
-         "plain_ms": plain2},
-    ]}))
+    from plonky2_tpu_torch.bench import build_poseidon_chain, build_smt_process
+    paths = {
+        "config1": phase_config("config1", device, lambda: build_poseidon_chain(12),
+                                "config1"),
+        "config3": phase_config("config3", device, lambda: build_smt_process(14),
+                                "config3"),
+    }
+    required = {"config1": ("K1", "K2-rev"), "config3": ("K1", "K3")}
+    for path, kernels in required.items():
+        for k in kernels:
+            if paths[path][k] <= 0:
+                raise AssertionError(f"kernel {k} was not launched on the {path} path")
+
+    # Each kernel at the shape its main path gives it; launches summed over
+    # the paths' runs.  The LDE kernels' bytes include their host tables.
+    from plonky2_tpu_torch.ntt import COSET_SHIFT, cuda_lde, cuda_lde_tiled
+
+    def table_words(module, log_n):
+        return sum(t.numel() for t in module._tables(log_n, 3, COSET_SHIFT, device))
+
+    rows = [
+        ("K1", "poseidon permute_cols [12, 131072] (config 3 leaf hashing)",
+         "plonky2_tpu_torch/csrc/poseidon.cu", "plonky2_tpu/hashes/pallas_poseidon.py:191",
+         k1[1 << 17], poseidon_work(1 << 17)),
+        ("K2-rev", "lde_from_values_rev [135, 4096] rate 3 (config 1 wires)",
+         "plonky2_tpu_torch/csrc/lde.cu", "plonky2_tpu/ntt/pallas_lde.py:316",
+         k2_rev[(135, 4096, 3)], lde_work(135, 4096, 3, table_words(cuda_lde, 12))),
+        ("K2-nat", "lde_from_values [135, 4096] rate 3 (on no prove path)",
+         "plonky2_tpu_torch/csrc/lde.cu", "plonky2_tpu/ntt/pallas_lde.py:303",
+         k2_nat[(135, 4096, 3)], lde_work(135, 4096, 3, table_words(cuda_lde, 12))),
+        ("K3", "lde_from_values_tiled_rev [135, 16384] rate 3 (config 3 wires)",
+         "plonky2_tpu_torch/csrc/lde_tiled.cu", "plonky2_tpu/ntt/pallas_lde_tiled.py:338",
+         k3[(135, 1 << 14, 3)], lde_work(135, 1 << 14, 3, table_words(cuda_lde_tiled, 14))),
+    ]
+    records = []
+    for key, label, source, replaces, (err, ms, plain_ms), (nbytes, imads) in rows:
+        bound_ms, bound_by = bound(nbytes, imads, sm_hz)
+        launches = sum(p[key] for p in paths.values())
+        log(f"[bound] {key} {label}: {nbytes / 1e6:.1f} MB, {imads / 1e6:.1f} M 32-bit "
+            f"multiplies -> bound {bound_ms:.4f} ms ({bound_by}); kernel {ms:.4f} ms, "
+            f"{100 * bound_ms / ms:.1f}% of the bound's speed")
+        records.append({"name": f"{key} {label}", "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches, "max_abs_err": err,
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": None})
+    log("[library] none: no PyTorch call computes a Goldilocks NTT or a Poseidon "
+        "permutation, so library_ms is null for every kernel")
+    log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))
     return 0

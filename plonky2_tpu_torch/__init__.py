@@ -6,29 +6,38 @@ inputs this package produces the same `serialize_proof` bytes.  It imports
 torch and numpy, never JAX, and nothing of `plonky2_tpu`.
 
 Field tensors are `torch.int64` holding the u64 bit pattern of a canonical
-Goldilocks element.  Every function runs on the device of the tensors it is
-given: `CircuitBuilder.build(device=...)` places a circuit, and `prove` runs
-where the circuit lives.  The TPU's Pallas kernels are hand-written CUDA
-(`csrc/`), built with nvcc at first use (`_build.py`):
+Goldilocks element.  Entry points run on the card unless the caller asks
+for the CPU: `CircuitBuilder.build()` (and `compile_circuit`, `fri.grind`)
+place their tensors on `cuda` by default and raise when there is no card;
+`build(device="cpu")` places a circuit on the CPU.  `prove` runs where the
+circuit lives, and every function runs on the device of the tensors it is
+given.  The TPU's Pallas kernels are hand-written CUDA (`csrc/`), built with
+nvcc at first use (`_build.py`):
 
-    K1  hashes/cuda_poseidon.py   Poseidon permutation   (csrc/poseidon.cu)
-    K2  ntt/cuda_lde.py           values -> coeffs + LDE (csrc/lde.cu)
+    K1  hashes/cuda_poseidon.py   Poseidon permutation       (csrc/poseidon.cu)
+    K2  ntt/cuda_lde.py           values -> coeffs + LDE,    (csrc/lde.cu)
+                                  n <= 2^13, bit-reversed or natural order
+    K3  ntt/cuda_lde_tiled.py     the same, bit-reversed,    (csrc/lde_tiled.cu)
+                                  2^14 <= n <= 2^20, four-step
 
-On a CPU tensor each kernel wrapper runs its plain torch version instead.
+On a CPU tensor the kernels' dispatchers run their plain torch versions
+instead.
 
 Layout (mirrors plonky2_tpu/):
     field/      Goldilocks and its quadratic extension
     hashes/     Poseidon (scalar, plain tensor, kernel K1)
-    ntt/        NTT / coset LDE (plain tensor, kernel K2)
+    ntt/        NTT / coset LDE (plain tensor, kernels K2 and K3)
     merkle/     cap-rooted Merkle trees
     transcript/ Fiat-Shamir challenger
     fri/        FRI prover
     ir/         CircuitBuilder, config
-    gates/      arithmetic, constant, public-input, noop, Poseidon gates
+    gates/      arithmetic, constant, public-input, noop, Poseidon, base-sum gates
     witness/    witness-generation scheduler
+    smt/        native sparse Merkle tree (witnesses of the SMT circuits)
+    gadgets/    SMT inclusion / process-proof circuits
     prove/      compile + prover
     serialization/  serialize_proof
-    bench/      config-1 circuit
+    bench/      config-1 and config-3 circuits; device profile of a prove
     convert.py  numpy <-> tensor bridges to the JAX package's arrays
 """
 

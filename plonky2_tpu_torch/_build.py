@@ -1,9 +1,12 @@
 """Build and load the port's CUDA kernels at first use.
 
-`nvcc` compiles every `csrc/*.cu` into one shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds), written to
-`plonky2_tpu_torch/build/` under a name that carries a hash of the
-sources; `ctypes` loads it.  A failed build raises: nothing falls back.
+`nvcc` compiles every `csrc/*.cu` into an object file, one process per
+source, all started together, then links them into one shared library with
+a plain C interface (no PyTorch headers, so a build takes seconds), written
+to `plonky2_tpu_torch/build/` under a name that carries a hash of the
+sources; `ctypes` loads it.  ptxas's register and spill report of every
+kernel goes to the library's `.log` beside it.  A failed build raises:
+nothing falls back.
 
     python -m plonky2_tpu_torch._build     # build now, print the library path
 """
@@ -22,7 +25,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -34,8 +37,9 @@ _SIGNATURES = {
     "p2t_poseidon_set_constants": [_vp, _vp],
     "p2t_poseidon_permute_cols": [_vp, _vp, _i64, _int, _vp],
     "p2t_gl_ops": [_vp, _vp, _vp, _i64, _vp],
-    "p2t_lde_from_values_rev": [_vp, _vp, _vp, _vp, _vp, _vp, _i64, _int, _int,
-                                ctypes.c_uint64, _vp],
+    "p2t_lde_from_values": [_vp, _vp, _vp, _vp, _vp, _vp, _i64, _int, _int,
+                            ctypes.c_uint64, _int, _vp],
+    "p2t_lde_tiled_rev": [_vp] * 12 + [_i64, _int, _int, _int, ctypes.c_uint64, _vp],
 }
 
 
@@ -71,14 +75,40 @@ def build() -> str:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[p for p in _sources() if p.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for src in (p for p in _sources() if p.endswith(".cu")):
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+    log = _wait(procs)
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+    log += _wait([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True))])
+    for obj in objs:
+        os.remove(obj)
+    with open(log_path(), "w") as f:
+        f.write(log)
     os.replace(tmp, out)
     return out
+
+
+def log_path() -> str:
+    """nvcc's output for the library of these sources."""
+    return library_path()[:-len(".so")] + ".log"
+
+
+def _wait(procs: list) -> str:
+    """Wait for every nvcc process; raise with the output of those that
+    failed, else return all their output."""
+    results = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in procs]
+    failed = [f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{output}"
+              for cmd, output, rc in results if rc != 0]
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(output for _, output, _ in results)
 
 
 def lib() -> ctypes.CDLL:

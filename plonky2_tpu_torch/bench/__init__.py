@@ -1,3 +1,4 @@
-"""Benchmark circuits: config 1 (Poseidon chain) of BASELINE.md."""
+"""Benchmark circuits: configs 1 (Poseidon chain) and 3 (SMT process) of
+BASELINE.md."""
 
-from .circuits import build_poseidon_chain  # noqa: F401
+from .circuits import build_poseidon_chain, build_smt_process  # noqa: F401

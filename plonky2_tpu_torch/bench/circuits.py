@@ -1,18 +1,36 @@
-"""Self-sizing benchmark circuits (config 1 of BASELINE.md).
+"""Self-sizing benchmark circuits (configs 1 and 3 of BASELINE.md).
 
-Counterpart of `build_poseidon_chain` in `plonky2_tpu/bench/circuits.py`:
-the circuit repeats its unit op until `num_gates()` reaches the target; the
-compiler pads to the next power of two.  The other configs need gates and
-gadgets that are not ported yet.
+Counterpart of `build_poseidon_chain` and `build_smt_process` in
+`plonky2_tpu/bench/circuits.py`: each circuit repeats its unit until
+`num_gates()` reaches the target; the compiler pads to the next power of
+two.  Configs 2, 4 and 5 need gates and gadgets that are not ported yet.
 """
 
 from __future__ import annotations
 
+import random
+
+from ..field import gl
 from ..ir import CircuitBuilder, CircuitConfig
 
 
 def _target_rows(degree_bits: int, margin: int) -> int:
     return (1 << degree_bits) - margin
+
+
+def _fill(b: CircuitBuilder, add_unit, limit: int) -> int:
+    """Add units until one more would cross `limit` rows; returns the count.
+
+    The first unit is measured to learn the per-unit gate cost (slot
+    packing makes later units slightly cheaper, so this is conservative)."""
+    g0 = b.num_gates()
+    add_unit()
+    unit = max(1, b.num_gates() - g0)
+    count = 1
+    while b.num_gates() + unit <= limit:
+        add_unit()
+        count += 1
+    return count
 
 
 def build_poseidon_chain(degree_bits: int = 12, config: CircuitConfig | None = None):
@@ -29,3 +47,49 @@ def build_poseidon_chain(degree_bits: int = 12, config: CircuitConfig | None = N
         b.register_public_input(t)
     inputs = {xs[i]: i + 1 for i in range(4)}
     return b, inputs, {"name": "poseidon_chain", "degree_bits": degree_bits}
+
+
+def build_smt_process(degree_bits: int = 14, n_levels: int = 32,
+                      config: CircuitConfig | None = None):
+    """Config 3: chained SMT process proofs at depth `n_levels` (the
+    reference's src/smt process circuits), sized to degree 2^degree_bits,
+    under `standard_recursion_config` unless `config` says otherwise.  The
+    witnesses come from the native tree: an insert / update / insert mix
+    drawn from a fixed seed.  Returns (builder, inputs, meta)."""
+    from ..gadgets.smt import SparseMerkleProcessProofTarget, verify_smt_transition
+    from ..smt import SparseMerkleTree
+
+    rng = random.Random(0x517BE7C4)
+
+    def rand_hash():
+        return tuple(rng.randrange(gl.P) for _ in range(4))
+
+    b = CircuitBuilder(config or CircuitConfig.standard_recursion_config())
+    targets = []
+
+    def add_unit():
+        t = SparseMerkleProcessProofTarget.add_virtual_to(b, n_levels)
+        if targets:
+            verify_smt_transition(b, t.fnc, targets[-1].new_root, t.old_root)
+        targets.append(t)
+
+    _fill(b, add_unit, _target_rows(degree_bits, 16))
+    for e in targets[0].old_root + targets[-1].new_root:
+        b.register_public_input(e)
+
+    tree = SparseMerkleTree()
+    keys = [rand_hash() for _ in range(max(4, len(targets)))]
+    proofs = []
+    for i in range(len(targets)):
+        op = i % 3
+        if op == 0:
+            proofs.append(tree.insert(keys[i], rand_hash()))
+        elif op == 1:
+            proofs.append(tree.update(keys[i - 1], rand_hash()))
+        else:
+            proofs.append(tree.insert(rand_hash(), rand_hash()))
+    inputs: dict = {}
+    for t, pr in zip(targets, proofs):
+        t.set_witness(inputs, pr)
+    return b, inputs, {"name": "smt_process", "degree_bits": degree_bits,
+                       "num_proofs": len(targets)}

@@ -25,6 +25,7 @@ from ..hashes import poseidon
 from ..merkle import MerkleTree
 from ..ntt.ntt import _bitrev_perm, host_powers, intt, intt_from_rev
 from ..transcript import Challenger
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 
 
 @dataclass(frozen=True)
@@ -129,7 +130,7 @@ def _grind_kernel(state_row, lo: int, batch: int, pos: int, pow_bits: int):
 
 
 def grind(challenger: Challenger, pow_bits: int, batch: int | None = None,
-          max_batches: int = 4096, device="cpu") -> int:
+          max_batches: int = 4096, device=DEFAULT_DEVICE) -> int:
     """The smallest w such that observe(w); get_challenge() has >= pow_bits
     leading zero bits.  Chunks are scanned in order and the first hit of
     the first chunk that has one is returned, so the witness does not
@@ -142,7 +143,7 @@ def grind(challenger: Challenger, pow_bits: int, batch: int | None = None,
     state = list(challenger.sponge_state)
     state[: len(buf)] = buf
     pos = len(buf)
-    state_row = gl.to_tensor(state, device)
+    state_row = gl.to_tensor(state, resolve_device(device))
     for chunk in range(max_batches):
         found, hit = _grind_kernel(state_row, chunk * batch, batch, pos,
                                    pow_bits)

@@ -223,6 +223,20 @@ def hash_no_pad_s(inputs: list[int]) -> list[int]:
     return hash_n_to_m_no_pad_s(inputs, HASH_OUT)
 
 
+def pad_inputs(inputs: list[int]) -> list[int]:
+    """10*1 padding: append 1, then zeros, then a final 1 that ends the
+    input at a multiple of WIDTH."""
+    padded = list(inputs) + [1]
+    while (len(padded) + 1) % WIDTH != 0:
+        padded.append(0)
+    padded.append(1)
+    return padded
+
+
+def hash_pad_s(inputs: list[int]) -> list[int]:
+    return hash_no_pad_s(pad_inputs(inputs))
+
+
 def two_to_one_s(x: list[int], y: list[int]) -> list[int]:
     if len(x) != HASH_OUT or len(y) != HASH_OUT:
         raise ValueError("two_to_one takes two 4-element digests")

@@ -4,12 +4,13 @@ Host copy of `plonky2_tpu/ir/builder.py`.  Targets are plain values —
 `int` for virtual targets, `Wire(row, col)` for wire slots — tracked in
 one union-find.  `build(device=...)` lowers everything to tensors
 (selector/constant/sigma polynomials, the committed constants/sigmas
-oracle) on that device, plus host tables for witness routing.
+oracle) on that device, the card unless the caller asks for the CPU, plus
+host tables for witness routing.
 
-The port carries the arithmetic, constant, public-input, noop and
-Poseidon gates.  Builder methods that place any other gate (base-sum,
-random access, exponentiation, comparison, the extension-field gates,
-coset interpolation, lookups) raise NotImplementedError naming the gate.
+The port carries the arithmetic, constant, public-input, noop, Poseidon
+and base-sum gates.  Builder methods that place any other gate (random
+access, exponentiation, comparison, the extension-field gates, coset
+interpolation, lookups) raise NotImplementedError naming the gate.
 """
 
 from __future__ import annotations
@@ -17,8 +18,9 @@ from __future__ import annotations
 from collections import namedtuple
 
 from ..field import gl
-from ..gates import ArithmeticGate, ConstantGate, PoseidonGate
+from ..gates import ArithmeticGate, BaseSumGate, ConstantGate, PoseidonGate
 from ..hashes import poseidon
+from ..utils.device import DEFAULT_DEVICE
 from ..witness import NamedGenerator
 
 Wire = namedtuple("Wire", ["row", "column"])
@@ -209,13 +211,24 @@ class CircuitBuilder:
             acc = self.mul_add(self.two(), acc, b)
         return acc
 
-    # ---------------- gates not ported yet ----------------
+    # ---------------- decomposition ----------------
 
     def split_le(self, x, num_bits: int) -> list:
-        _not_ported("BaseSumGate")
+        """Little-endian bit decomposition (bits are range-constrained)."""
+        return self.split_le_base(2, x, num_bits)
 
     def split_le_base(self, base: int, x, num_limbs: int) -> list:
-        _not_ported("BaseSumGate")
+        gate = BaseSumGate(base, num_limbs)
+        row = self.add_gate(gate, [])
+        self.connect(x, Wire(row, gate.WIRE_SUM))
+        limbs = []
+        for i in range(num_limbs):
+            t = self.add_virtual_target()
+            self.connect(t, Wire(row, gate.wire_limb(i)))
+            limbs.append(t)
+        return limbs
+
+    # ---------------- gates not ported yet ----------------
 
     def random_access(self, index, items: list):
         _not_ported("RandomAccessGate")
@@ -224,7 +237,7 @@ class CircuitBuilder:
         _not_ported("ExponentiationGate")
 
     def exp_u64(self, base, exponent, num_bits: int = 64):
-        _not_ported("BaseSumGate and ExponentiationGate")
+        _not_ported("ExponentiationGate")
 
     def le_compare(self, a, b, num_bits: int = 32):
         _not_ported("ComparisonGate")
@@ -337,8 +350,9 @@ class CircuitBuilder:
 
     # ---------------- build ----------------
 
-    def build(self, device="cpu"):
-        """Compile the circuit; its tensors live on `device`."""
+    def build(self, device=DEFAULT_DEVICE):
+        """Compile the circuit; its tensors live on `device`: the card unless
+        the caller asks for the CPU (no card: raises before any work)."""
         from ..prove.compile import compile_circuit
         data = compile_circuit(self, device)
         self._built = True

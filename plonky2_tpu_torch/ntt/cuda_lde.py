@@ -1,12 +1,14 @@
-"""Kernel K2: values -> (coefficients, bit-reversed coset LDE) on the card
-(`csrc/lde.cu`).
+"""Kernel K2: values -> (coefficients, coset LDE) on the card (`csrc/lde.cu`).
 
-Replaces `plonky2_tpu/ntt/pallas_lde.py` `lde_from_values_pallas_rev`.
-`ntt.lde_from_values_rev_auto` sends a CUDA tensor here and runs the plain
-torch version (`ntt.lde_from_values_rev`) for a CPU tensor.  The kernel
-takes 2 <= n <= 2^13 and 2^rate <= 64; for a CUDA tensor outside that range
-the wrapper raises (larger n is the tiled four-step kernel K3, not yet
-ported).  There is no probe and no fallback.
+Replaces `plonky2_tpu/ntt/pallas_lde.py` `lde_from_values_pallas_rev`
+(K2-rev: the LDE in bit-reversed order, the commit path) and
+`lde_from_values_pallas` (K2-nat: the LDE in natural order).  The
+dispatchers `ntt.lde_from_values_rev_auto` and `ntt.lde_from_values_auto`
+send a CUDA tensor here and run the plain torch versions
+(`ntt.lde_from_values_rev`, `ntt.lde_from_values`) for a CPU tensor.  The
+kernel takes 2 <= n <= 2^13 and 2^rate <= 64; for a CUDA tensor outside
+that range the wrapper raises (2^14 <= n <= 2^20 is the tiled kernel K3,
+`cuda_lde_tiled`).  There is no probe and no fallback.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ from .. import _build
 from ..field import gl
 from .ntt import COSET_SHIFT
 
-LAUNCHES = 0                 # kernel launches made by `lde_from_values_rev_cuda`
+LAUNCHES = 0                 # K2-rev launches made by `lde_from_values_rev_cuda`
+LAUNCHES_NAT = 0             # K2-nat launches made by `lde_from_values_cuda`
 MAX_LOG_N = 13
 MAX_RATE_BITS = 6
 
@@ -45,31 +48,61 @@ def _tables(log_n: int, rate_bits: int, shift: int, device):
             gl.to_tensor(pows, device))
 
 
-def lde_from_values_rev_cuda(values: torch.Tensor, rate_bits: int,
-                             shift: int = COSET_SHIFT):
-    """Launch K2 on values [..., n] int64 on a CUDA device."""
-    global LAUNCHES
+def run_lde(tag: str, values: torch.Tensor, rate_bits: int, supported, range_text: str,
+            launch):
+    """What the LDE kernels' wrappers (K2, K3) share.  Checks that values
+    [..., n] are int64 on a CUDA device and that supported(n, rate_bits)
+    holds, views them as [b, n], allocates coeffs [b, n] and the LDE
+    [b, n * 2^rate_bits], and unless b == 0 calls launch(v, coeffs, lde, b,
+    log_n, stream), which returns the C interface's status.  -> (coeffs,
+    lde, launched)."""
     n = values.shape[-1]
     if values.dtype != gl.DTYPE:
-        raise ValueError(f"K2 takes int64 values, got {values.dtype}")
+        raise ValueError(f"{tag} takes int64 values, got {values.dtype}")
+    if values.device.type != "cuda":
+        raise ValueError(f"{tag} takes a CUDA tensor, got one on {values.device}")
     if not supported(n, rate_bits):
         raise ValueError(
-            f"K2 takes 2 <= n <= 2^{MAX_LOG_N} and rate_bits <= {MAX_RATE_BITS}, "
-            f"got n={n}, rate_bits={rate_bits}; larger n needs the tiled "
-            f"four-step LDE kernel (K3), which is not yet ported")
+            f"{tag} takes {range_text}, n a power of 2, and rate_bits <= "
+            f"{MAX_RATE_BITS}, got n={n}, rate_bits={rate_bits}")
     batch = values.shape[:-1]
     b = int(np.prod(batch)) if batch else 1
     v = values.reshape(b, n).contiguous()
-    log_n = n.bit_length() - 1
-    tw_inv, tw_fwd, pows = _tables(log_n, rate_bits, shift % gl.P, values.device)
     coeffs = torch.empty((b, n), dtype=gl.DTYPE, device=values.device)
     lde = torch.empty((b, n << rate_bits), dtype=gl.DTYPE, device=values.device)
     if b:
         with torch.cuda.device(values.device):
             stream = torch.cuda.current_stream(values.device).cuda_stream
-            _build.check(_build.lib().p2t_lde_from_values_rev(
-                v.data_ptr(), coeffs.data_ptr(), lde.data_ptr(),
-                tw_inv.data_ptr(), tw_fwd.data_ptr(), pows.data_ptr(), b,
-                log_n, rate_bits, gl.inv_s(n), stream), "K2 launch")
-        LAUNCHES += 1
-    return coeffs.reshape(*batch, n), lde.reshape(*batch, n << rate_bits)
+            _build.check(launch(v, coeffs, lde, b, n.bit_length() - 1, stream),
+                         f"{tag} launch")
+    return coeffs.reshape(*batch, n), lde.reshape(*batch, n << rate_bits), b > 0
+
+
+def _launch(values: torch.Tensor, rate_bits: int, shift: int, natural: bool):
+    def launch(v, coeffs, lde, b, log_n, stream):
+        tw_inv, tw_fwd, pows = _tables(log_n, rate_bits, shift % gl.P, values.device)
+        return _build.lib().p2t_lde_from_values(
+            v.data_ptr(), coeffs.data_ptr(), lde.data_ptr(), tw_inv.data_ptr(),
+            tw_fwd.data_ptr(), pows.data_ptr(), b, log_n, rate_bits, gl.inv_s(1 << log_n),
+            int(natural), stream)
+    return run_lde("K2", values, rate_bits, supported, f"2 <= n <= 2^{MAX_LOG_N}", launch)
+
+
+def lde_from_values_rev_cuda(values: torch.Tensor, rate_bits: int,
+                             shift: int = COSET_SHIFT):
+    """K2-rev on values [..., n] int64 on a CUDA device -> (coeffs natural,
+    LDE bit-reversed)."""
+    global LAUNCHES
+    coeffs, lde, launched = _launch(values, rate_bits, shift, natural=False)
+    LAUNCHES += launched
+    return coeffs, lde
+
+
+def lde_from_values_cuda(values: torch.Tensor, rate_bits: int,
+                         shift: int = COSET_SHIFT):
+    """K2-nat on values [..., n] int64 on a CUDA device -> (coeffs natural,
+    LDE natural: position t holds the value at shift * w_N^t)."""
+    global LAUNCHES_NAT
+    coeffs, lde, launched = _launch(values, rate_bits, shift, natural=True)
+    LAUNCHES_NAT += launched
+    return coeffs, lde

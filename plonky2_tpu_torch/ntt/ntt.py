@@ -10,8 +10,10 @@ Conventions:
   in natural order; the `_rev` variants store the same values in
   BIT-REVERSED domain order (plonky2's storage layout, see fri/fri.py).
 
-`lde_from_values_rev_auto` is the prover's commit-path dispatcher: kernel
-K2 (`cuda_lde`) for a CUDA tensor, the plain version for a CPU tensor.
+`lde_from_values_rev_auto` is the prover's commit-path dispatcher: for a
+CUDA tensor kernel K2 (`cuda_lde`, n <= 2^13) or K3 (`cuda_lde_tiled`,
+2^14 <= n <= 2^20), for a CPU tensor the plain version.
+`lde_from_values_auto` is the same for the natural-order LDE (K2-nat).
 """
 
 from __future__ import annotations
@@ -153,22 +155,44 @@ def coset_lde_rev(coeffs, rate_bits: int, shift: int = COSET_SHIFT):
     return ntt_to_rev(_scaled_padded(coeffs, rate_bits, shift))
 
 
+def lde_from_values(values, rate_bits: int, shift: int = COSET_SHIFT):
+    """Values over H (natural order) -> (coeffs, LDE over the coset, both in
+    natural order).  The plain version of kernel K2-nat."""
+    coeffs = intt(values)
+    return coeffs, coset_lde(coeffs, rate_bits, shift)
+
+
 def lde_from_values_rev(values, rate_bits: int, shift: int = COSET_SHIFT):
     """Values over H (natural order) -> (coeffs natural order, LDE in
-    bit-reversed order).  The plain version of kernel K2."""
+    bit-reversed order).  The plain version of kernels K2-rev and K3."""
     coeffs = intt(values)
     return coeffs, coset_lde_rev(coeffs, rate_bits, shift)
 
 
+def lde_from_values_auto(values, rate_bits: int, shift: int = COSET_SHIFT):
+    """Values over H -> (coeffs natural, LDE natural).  Kernel K2-nat for a
+    CUDA tensor (it raises outside its range), the plain version for a CPU
+    tensor; any other device raises."""
+    if values.device.type == "cpu":
+        return lde_from_values(values, rate_bits, shift)
+    if values.device.type == "cuda":
+        from .cuda_lde import lde_from_values_cuda
+        return lde_from_values_cuda(values, rate_bits, shift)
+    raise ValueError(f"no LDE for device {values.device}")
+
+
 def lde_from_values_rev_auto(values, rate_bits: int, shift: int = COSET_SHIFT):
     """Values over H -> (coeffs natural, LDE bit-reversed): the commit-path
-    dispatcher.  Kernel K2 for a CUDA tensor (it raises outside the sizes it
-    takes), the plain version for a CPU tensor; any other device raises."""
-    if values.device.type == "cuda":
-        from .cuda_lde import lde_from_values_rev_cuda
-        return lde_from_values_rev_cuda(values, rate_bits, shift)
+    dispatcher.  For a CUDA tensor kernel K2 where it takes the size (n <=
+    2^13), else K3 (2^14 <= n <= 2^20; it raises outside that range); for a
+    CPU tensor the plain version; any other device raises."""
     if values.device.type == "cpu":
         return lde_from_values_rev(values, rate_bits, shift)
+    if values.device.type == "cuda":
+        from . import cuda_lde, cuda_lde_tiled
+        if cuda_lde.supported(values.shape[-1], rate_bits):
+            return cuda_lde.lde_from_values_rev_cuda(values, rate_bits, shift)
+        return cuda_lde_tiled.lde_from_values_tiled_rev_cuda(values, rate_bits, shift)
     raise ValueError(f"no LDE for device {values.device}")
 
 

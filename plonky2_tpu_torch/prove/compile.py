@@ -5,7 +5,7 @@ pad to a power of two with noops, group gates into selector polynomials,
 pack per-gate constants into constant polynomials, resolve the
 copy-constraint union-find into sigma polynomials (one `index_select` of
 the label table), LDE + Merkle-commit the constants/sigmas oracle through
-`lde_from_values_rev_auto` (kernel K2 on the card), and freeze the
+`lde_from_values_rev_auto` (kernel K2 or K3 on the card), and freeze the
 witness-generator schedule.  Every tensor of `ProverData` lives on the
 device given to `compile_circuit`.
 """
@@ -22,6 +22,7 @@ from ..gates import NoopGate, PublicInputGate
 from ..hashes import poseidon
 from ..merkle import MerkleTree
 from ..ntt import host_powers, lde_from_values_rev_auto
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 from ..witness import LambdaGenerator
 
 
@@ -113,10 +114,13 @@ def _selector_groups(gates, max_degree_factor: int) -> SelectorInfo:
     return SelectorInfo(groups=groups, unused=len(gates), gate_group=gate_group)
 
 
-def compile_circuit(builder, device="cpu") -> CircuitData:
+def compile_circuit(builder, device=DEFAULT_DEVICE) -> CircuitData:
+    """Compile `builder`'s circuit; its tensors live on `device` (the card
+    unless the caller asks for the CPU)."""
     from ..utils import timed_span
+    dev = resolve_device(device)
     with timed_span(f"build ({len(builder.gate_instances)} gate rows)"):
-        return _compile_impl(builder, torch.device(device))
+        return _compile_impl(builder, dev)
 
 
 def _sigma_polys(perm: np.ndarray, k_is: list, degree_bits: int, device):

@@ -4,14 +4,15 @@ Counterpart of `plonky2_tpu/prove/prover.py` (`_make_kernels` and
 `prove`/`_prove_impl`, without the mesh).  Phases and placement:
 
 1. witness generation         host (dataflow scheduler + batched aux fill)
-2. wire LDE + Merkle cap      device: kernel K2, then kernel K1 under the tree
-3. permutation Z polys        device: plain torch, K2 + K1 for the commit
+2. wire LDE + Merkle cap      device: kernel K2 (n <= 2^13) or K3, then K1
+                              under the tree
+3. permutation Z polys        device: plain torch, K2/K3 + K1 for the commit
 4. quotient on the 8n coset   device: plain torch, K1 for the commit
 5. openings at zeta           device: plain torch
 6. FRI                        device: plain torch folds, K1 trees and grind
 
 The Pallas kernels of the JAX package are ported as hand-written CUDA (K1,
-K2); the phases that XLA compiled there (quotient, Z, composite, fold,
+K2, K3); the phases that XLA compiled there (quotient, Z, composite, fold,
 openings) start here as plain torch ops.  Host and device meet only at
 transcript points: a Merkle cap or opening values crossing into the
 Fiat-Shamir challenger.

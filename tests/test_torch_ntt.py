@@ -1,11 +1,13 @@
 """The port's NTT / LDE (`plonky2_tpu_torch.ntt`) against the JAX package.
 
 Exact equality (tolerance 0).  The port's plain `lde_from_values_rev` — the
-version its CUDA kernel K2 is held against on the card — is compared with
-the JAX Pallas kernel it replaces, run in interpret mode as the JAX
-package's own CPU tests run it, and with the JAX XLA path at sizes the
-Pallas kernel does not take.  The JAX references run under `jax.jit` (one
-compile per shape instead of one per eager op).
+version its CUDA kernels K2 and K3 are held against on the card — and plain
+`lde_from_values` (K2-nat's) are compared with the JAX Pallas kernels they
+replace, run in interpret mode as the JAX package's own CPU tests run them,
+and with the JAX XLA path at sizes the Pallas kernels do not take.  The
+kernels' range predicates and K3's host tables are held against the JAX
+dispatcher and the JAX tiled kernel's tables.  The JAX references run under
+`jax.jit` (one compile per shape instead of one per eager op).
 """
 import jax
 import jax.numpy as jnp
@@ -14,10 +16,12 @@ import pytest
 import torch
 
 from plonky2_tpu import ntt as jntt
-from plonky2_tpu.ntt.pallas_lde import lde_from_values_pallas_rev
+from plonky2_tpu.ntt import pallas_lde, pallas_lde_tiled
+from plonky2_tpu.ntt.ntt import PALLAS_LDE_MAX, PALLAS_LDE_TILED_MAX
+from plonky2_tpu.ntt.pallas_lde import lde_from_values_pallas, lde_from_values_pallas_rev
 from plonky2_tpu_torch.field import gl
 from plonky2_tpu_torch import ntt
-from plonky2_tpu_torch.ntt import cuda_lde
+from plonky2_tpu_torch.ntt import cuda_lde, cuda_lde_tiled
 
 RNG = np.random.RandomState(0xF00D)
 
@@ -81,17 +85,81 @@ def test_eval_polys_at_ext_equals_jax():
 
 
 def test_k2_wrapper_bounds():
-    # the kernel's sizes: 2 <= n <= 2^13, 2^rate <= 64; beyond is K3 (not ported)
+    # the kernel's sizes: 2 <= n <= 2^13, 2^rate <= 64; beyond is K3
     assert cuda_lde.supported(2, 3) and cuda_lde.supported(1 << 13, 6)
     assert not cuda_lde.supported(1, 3)
     assert not cuda_lde.supported(1 << 14, 3)
     assert not cuda_lde.supported(1 << 12, 7)
     assert not cuda_lde.supported(96, 3)
     vals = gl.to_tensor(rand_u64(2, 16))
-    before = cuda_lde.LAUNCHES
+    before = (cuda_lde.LAUNCHES, cuda_lde.LAUNCHES_NAT, cuda_lde_tiled.LAUNCHES)
     c, lde = ntt.lde_from_values_rev_auto(vals, 3)
-    assert cuda_lde.LAUNCHES == before                  # CPU: plain version
     assert torch.equal(lde, ntt.lde_from_values_rev(vals, 3)[1])
-    with pytest.raises(ValueError):
-        ntt.lde_from_values_rev_auto(torch.empty((2, 16), dtype=torch.int64,
-                                                 device="meta"), 3)
+    c, lde = ntt.lde_from_values_auto(vals, 3)
+    assert torch.equal(lde, ntt.lde_from_values(vals, 3)[1])
+    # CPU: plain versions, no launch
+    assert (cuda_lde.LAUNCHES, cuda_lde.LAUNCHES_NAT, cuda_lde_tiled.LAUNCHES) == before
+    meta = torch.empty((2, 16), dtype=torch.int64, device="meta")
+    for dispatch in (ntt.lde_from_values_rev_auto, ntt.lde_from_values_auto):
+        with pytest.raises(ValueError):
+            dispatch(meta, 3)
+    # the wrappers take CUDA tensors only: nothing runs a kernel's plain
+    # version for them
+    for wrapper, n in ((cuda_lde.lde_from_values_rev_cuda, 16),
+                       (cuda_lde.lde_from_values_cuda, 16),
+                       (cuda_lde_tiled.lde_from_values_tiled_rev_cuda, 1 << 14)):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            wrapper(torch.zeros((1, n), dtype=torch.int64), 3)
+
+
+def test_kernel_ranges_match_jax_dispatcher():
+    # K2 takes every (n, rate) the JAX dispatcher gives the fused Pallas
+    # kernel (and the small n that kernel refuses), K3 exactly those it
+    # gives the tiled kernel; the two ranges do not overlap.
+    for log_n in range(0, 23):
+        n = 1 << log_n
+        for rate in range(0, 9):
+            jax_k2 = pallas_lde._supported(n, rate) and n <= PALLAS_LDE_MAX
+            jax_k3 = (PALLAS_LDE_MAX < n <= PALLAS_LDE_TILED_MAX
+                      and pallas_lde_tiled._supported_tiled(n, rate))
+            k2, k3 = cuda_lde.supported(n, rate), cuda_lde_tiled.supported(n, rate)
+            assert k3 == jax_k3, (n, rate)
+            assert k2 == (1 <= log_n <= 13 and rate <= 6), (n, rate)
+            assert not jax_k2 or k2, (n, rate)
+            assert not (k2 and k3)
+    for n in (3 << 14, (1 << 14) + 1):
+        assert not cuda_lde_tiled.supported(n, 3)
+
+
+# (15, 7) and (17, 8) are the kernel's own split of an odd log n (n1 < n2,
+# `split_log`); (15, 8) is the JAX kernel's
+@pytest.mark.parametrize("log_n,log_n1,rate",
+                         [(14, 7, 3), (16, 8, 6), (15, 8, 2), (15, 7, 3), (17, 8, 3)])
+def test_k3_host_tables_equal_jax(log_n, log_n1, rate):
+    for sign in (-1, 1):
+        assert np.array_equal(cuda_lde_tiled.inter_twiddle(log_n, log_n1, sign),
+                              pallas_lde_tiled._inter_twiddle(log_n, log_n1, sign))
+    u, v = cuda_lde_tiled.scale_vectors(log_n, log_n1, rate, ntt.COSET_SHIFT)
+    ju, jv = pallas_lde_tiled._scale_vectors(log_n, log_n1, rate, ntt.COSET_SHIFT)
+    assert np.array_equal(u, ju) and np.array_equal(v, jv)
+
+
+def test_k3_size_lde_rev_auto_equals_jax():
+    # the smallest K3 size on a CPU tensor: the dispatcher's plain version
+    vals = rand_u64(2, 1 << 14)
+    before = cuda_lde_tiled.LAUNCHES
+    cg, lg = ntt.lde_from_values_rev_auto(gl.to_tensor(vals), 3)
+    assert cuda_lde_tiled.LAUNCHES == before
+    cw, lw = jntt.lde_from_values_rev_jit(jnp.asarray(vals), rate_bits=3)
+    assert _pair(cg, cw) and _pair(lg, lw)
+
+
+def test_lde_natural_equals_jax_and_pallas_interpret():
+    vals = rand_u64(3, 1 << 9)
+    cg, lg = ntt.lde_from_values(gl.to_tensor(vals), 3)
+    cw, lw = jntt.lde_from_values_jit(jnp.asarray(vals), rate_bits=3)
+    assert _pair(cg, cw) and _pair(lg, lw)
+    cp, lp = lde_from_values_pallas(jnp.asarray(vals), 3, interpret=True)
+    assert _pair(cg, cp) and _pair(lg, lp)
+    ca, la = ntt.lde_from_values_auto(gl.to_tensor(vals), 3)
+    assert torch.equal(ca, cg) and torch.equal(la, lg)

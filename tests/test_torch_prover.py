@@ -14,6 +14,8 @@ same path on the card is `chip_smoke.py`.
 * the builder's gadget helpers (select, is_equal, le_sum, ...) give the
   JAX builder's gates, constants and copy classes, and the values they
   compute;
+* `build()`, `compile_circuit()` and `grind()` run on the card unless the
+  caller passes `device="cpu"`, as every test here does;
 * a Poseidon chain under test_config (2^6 rows) gives the digest recorded
   in tests/torch_port_vectors.json; a `slow` test regenerates that fixture
   with the JAX package (scripts/make_torch_port_vectors.py).
@@ -63,7 +65,7 @@ def jax_tiny():
 @pytest.fixture(scope="module")
 def port_tiny():
     b, inputs = _tiny(CircuitBuilder, CircuitConfig)
-    data = b.build()
+    data = b.build(device="cpu")
     return data, inputs, serialize_proof(data.prove(inputs))
 
 
@@ -118,7 +120,7 @@ def test_small_poseidon_chain_matches_fixture():
     want = _load("torch_port_vectors.json")["small_chain"]
     b, inputs, _ = build_poseidon_chain(6, CircuitConfig.test_config())
     assert b.num_gates() == want["num_gates"]
-    data = b.build()
+    data = b.build(device="cpu")
     assert data.common.degree_bits == want["degree_bits"]
     assert [[int(x) for x in d] for d in data.verifier.cs_cap] == want["cs_cap"]
     proof = data.prove(inputs)
@@ -161,7 +163,7 @@ def test_builder_helpers_match_jax_graph():
             out.setdefault(builder._find(t), []).append(repr(t))
         return sorted(sorted(c) for c in out.values())
     assert classes(b) == classes(jb)
-    proof = b.build().prove(inputs)
+    proof = b.build(device="cpu").prove(inputs)
     pis = proof.public_inputs
     assert pis[:5] == [5 + 7 + 5, 5, 0, 1, 1]
     assert pis[5:] == list(poseidon.hash_no_pad_s([17, 5, 1, 5, 7, 0, 1, 1, 0, 1,
@@ -170,7 +172,8 @@ def test_builder_helpers_match_jax_graph():
 
 @pytest.mark.slow
 def test_fixture_regenerates_from_jax():
-    # ~10 min on the CPU: the JAX package proves config 1 (2^12 rows).
+    # ~16 min on the CPU: the JAX package proves config 1 (2^12 rows) and
+    # config 3 (2^14 rows).
     path = os.path.join(os.path.dirname(HERE), "scripts", "make_torch_port_vectors.py")
     spec = importlib.util.spec_from_file_location("make_torch_port_vectors", path)
     gen = importlib.util.module_from_spec(spec)
@@ -188,12 +191,32 @@ def test_grind_witness_independent_of_batch_and_equal_jax():
     for c in (ch, jch):
         c.observe_elements([5, 2**63 + 7, 11])
     # pow_bits 8: the default batch is 4096; smaller batches span many chunks
-    w = grind(ch, 8)
+    w = grind(ch, 8, device="cpu")
     assert w == jgrind(jch, 8)
-    assert grind(ch, 8, batch=100) == w
-    assert grind(ch, 8, batch=37) == w
+    assert grind(ch, 8, batch=100, device="cpu") == w
+    assert grind(ch, 8, batch=37, device="cpu") == w
     ch.observe_element(w)
     assert ch.get_challenge() < 1 << 56
+
+
+def test_entry_points_default_to_the_card():
+    # Without a card, build(), compile_circuit() and grind() with no device
+    # raise, and build() raises before it touches the circuit.
+    import torch
+    from plonky2_tpu_torch.fri import grind
+    from plonky2_tpu_torch.prove.compile import compile_circuit
+    from plonky2_tpu_torch.transcript import Challenger
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a card")
+    b, _ = _tiny(CircuitBuilder, CircuitConfig)
+    rows = b.num_gates()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        b.build()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        compile_circuit(b)
+    assert b.num_gates() == rows and not b._built
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        grind(Challenger(), 8)
 
 
 def test_poseidon_gate_eval_forms_agree():
