@@ -8,10 +8,12 @@ kernel against its plain torch version there:
 
   1. device      name, power limit, SM clock; fails without CUDA
   2. build       nvcc builds plonky2_tpu_torch/csrc/*.cu, one process per
-                 source; ptxas's register and spill report
+                 source; ptxas's register and spill report; each kernel's
+                 SASS instruction and multiply counts (bench/sass.py)
   3. field       csrc/goldilocks.cuh against the plain field ops
   4. K1          Poseidon kernel against the plain permutation, with both
-                 MDS layers (small-entry split and generic mulmods)
+                 MDS layers (small-entry split and generic mulmods), and
+                 at ragged batch widths
   5. K2          LDE kernel, bit-reversed (K2-rev) and natural (K2-nat)
                  order, against the plain LDEs
   6. K3          tiled four-step LDE kernel against the plain LDE, at
@@ -50,21 +52,26 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, reps: int = 5) -> float:
-    """Median wall time of fn() in ms, each run bracketed by CUDA events
-    after a warm-up call and a synchronize."""
+def time_ms(fn, launches: int = 20, brackets: int = 5) -> float:
+    """Device time of one fn() in ms: after a warm-up call and a
+    synchronize, each of `brackets` pairs of CUDA events brackets
+    `launches` back-to-back calls, so the host's launch time overlaps the
+    device's work instead of adding to it; the median bracket over
+    `launches`.  The plain versions, of hundreds of launches each, take
+    launches=1."""
     import torch
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(brackets):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(launches):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
 
 
@@ -165,6 +172,11 @@ def phase_device():
     return name, sm_mhz * 1e6
 
 
+# K1's round loops in csrc/poseidon.cu, in address order: the 8 full rounds,
+# and the 22 partial rounds run on one of their trips.
+K1_LOOP_TRIPS = (8, 22)
+
+
 def phase_build():
     from plonky2_tpu_torch import _build
     t0 = time.perf_counter()
@@ -176,6 +188,28 @@ def phase_build():
         for line in f:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log("[build] " + line.strip())
+    from plonky2_tpu_torch.bench import sass
+    try:
+        counts, probes = sass.count(path), sass.probes()
+    except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+        log(f"[sass] not counted: {e}")
+        return
+    for name, c in sorted(counts.items()):
+        loops = "".join(f"; a loop of {lp['instructions']} instructions "
+                        f"({lp['multiplies']} multiplies)" for lp in c["loops"])
+        log(f"[sass] {name}: {c['instructions']} instructions, {c['multiplies']} "
+            f"integer multiplies, {c['imad_other']} IMAD moves/shifts/adds{loops}")
+        if "permute_cols_kernel" in name:
+            try:
+                run = sass.per_thread(c, K1_LOOP_TRIPS)
+            except ValueError as e:
+                log(f"[sass]   per permutation: not derived ({e})")
+                continue
+            log(f"[sass]   per permutation (round loops run {K1_LOOP_TRIPS} times): "
+                f"{run['instructions']} instructions, {run['multiplies']} integer multiplies")
+    for form, c in probes.items():
+        log(f"[sass] probe {form}: {c['instructions']} instructions, "
+            f"{c['multiplies']} integer multiplies")
 
 
 def phase_field(device):
@@ -188,13 +222,33 @@ def phase_field(device):
     a = np.concatenate([np.repeat(edge, len(edge)), rand])
     b = np.concatenate([np.tile(edge, len(edge)), rand[::-1]])
     ta, tb = gl.to_tensor(a, device), gl.to_tensor(b, device)
-    got = gl_ops_cuda(ta, tb)
+    got = gl_ops_cuda(ta, tb)[:4]
     want = torch.stack([gl.add(ta, tb), gl.sub(ta, tb), gl.mul(ta, tb), gl.neg(ta)])
     torch.cuda.synchronize()
     require_equal("goldilocks.cuh", got, want)
     log(f"[field] goldilocks.cuh add/sub/mul/neg bit-equal to plain gl on "
         f"{len(a)} pairs (all pairs of 0, 1, 2^32-1, 2^32, 2^63-1, 2^63, "
         f"p-2, p-1, and random pairs over [0, p))")
+    # K1's lazy forms take any u64: edges above p too, and random pairs over
+    # [0, 2^64), against the plain ops on the inputs made canonical.
+    edge = np.asarray(EDGES + [gl.P, gl.P + 1, 2**64 - 2**32 + 2**31, 2**64 - 2, 2**64 - 1],
+                      dtype=np.uint64)
+    rng = np.random.RandomState(8)
+    rand = ((rng.randint(0, 2**32, 8192, dtype=np.int64).astype(np.uint64) << np.uint64(32))
+            | rng.randint(0, 2**32, 8192, dtype=np.int64).astype(np.uint64))
+    a = np.concatenate([np.repeat(edge, len(edge)), rand])
+    b = np.concatenate([np.tile(edge, len(edge)), rand[::-1]])
+    ta, tb = gl.to_tensor(a, device), gl.to_tensor(b, device)
+    got = gl_ops_cuda(ta, tb)[4:]
+    ca, cb = gl._canon(ta), gl._canon(tb)
+    prod = gl.mul(ca, cb)
+    want = torch.stack([prod, gl.add(gl.mul(ca, gl.full_like(ca, gl.EPSILON)), cb),
+                        gl.add(ca, cb), gl.sub(ca, cb), gl.mul(prod, gl.full_like(ca, 12))])
+    torch.cuda.synchronize()
+    require_equal("goldilocks.cuh lazy forms", got, want)
+    log(f"[field] lazy mul, reduce128, add, sub and a 12-product Acc bit-equal to plain gl "
+        f"on {len(a)} pairs of any u64 (all pairs of the edges above and p, p+1, "
+        f"2^64-2^31, 2^64-2, 2^64-1, and random pairs)")
 
 
 def phase_k1(device):
@@ -209,7 +263,7 @@ def phase_k1(device):
         want = poseidon.permute_cols_plain(s)
         err = require_equal(f"K1 [12, {b}]", got, want)
         ms = time_ms(lambda: cuda_poseidon.permute_cols_cuda(s))
-        plain_ms = time_ms(lambda: poseidon.permute_cols_plain(s))
+        plain_ms = time_ms(lambda: poseidon.permute_cols_plain(s), launches=1)
         log(f"[K1] Poseidon [12, {b}]: bit-equal; kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms")
         out[b] = (err, ms, plain_ms)
@@ -221,10 +275,18 @@ def phase_k1(device):
             ms = time_ms(lambda: cuda_poseidon.permute_cols_cuda(s, small_mds=False))
             log(f"[K1] Poseidon [12, {b}], generic mulmod MDS layer: bit-equal; "
                 f"kernel {ms:.4f} ms")
+    # Ragged batches: a partial last block, and a batch of one state.
+    for b in (1, 1000, (1 << 17) + 3):
+        s = gl.to_tensor(rand_field(rng, (12, b)), device)
+        want = poseidon.permute_cols_plain(s)
+        for small in (True, False):
+            require_equal(f"K1 [12, {b}] small_mds={small}",
+                          cuda_poseidon.permute_cols_cuda(s, small_mds=small), want)
+    log("[K1] ragged batches 1, 1000 and 2^17 + 3: bit-equal on both MDS layers")
     return out
 
 
-def _lde_check(tag, device, rng, kernel, plain, shapes, rate_bits, plain_reps=5):
+def _lde_check(tag, device, rng, kernel, plain, shapes, rate_bits, plain_brackets=5):
     """Hold an LDE kernel against its plain version at each [rows, n]:
     -> {(rows, n, rate_bits): (max_abs_err, kernel ms, plain ms)}."""
     from plonky2_tpu_torch.field import gl
@@ -237,7 +299,7 @@ def _lde_check(tag, device, rng, kernel, plain, shapes, rate_bits, plain_reps=5)
         err = require_equal(f"{tag} LDE [{rows}, {n}]", lg, lw)
         del cg, lg, cw, lw
         ms = time_ms(lambda: kernel(v, rate_bits))
-        plain_ms = time_ms(lambda: plain(v, rate_bits), reps=plain_reps)
+        plain_ms = time_ms(lambda: plain(v, rate_bits), launches=1, brackets=plain_brackets)
         log(f"[{tag}] LDE [{rows}, {n}] rate {rate_bits}: coeffs and LDE bit-equal; "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         out[(rows, n, rate_bits)] = (err, ms, plain_ms)
@@ -268,7 +330,7 @@ def phase_k3(device):
     # tables take other shapes than in the square case
     out.update(_lde_check("K3", device, rng, kernel, plain,
                           ((135, 1 << 15), (135, 1 << 16), (20, 1 << 17), (2, 1 << 20)), 3,
-                          plain_reps=2))
+                          plain_brackets=2))
     out.update(_lde_check("K3", device, rng, kernel, plain, ((3, 1 << 14),), 6))
     torch.cuda.empty_cache()
     return out

@@ -34,7 +34,7 @@ _vp = ctypes.c_void_p
 _i64 = ctypes.c_int64
 _int = ctypes.c_int
 _SIGNATURES = {
-    "p2t_poseidon_set_constants": [_vp, _vp],
+    "p2t_poseidon_set_constants": [_vp, _vp, _vp],
     "p2t_poseidon_permute_cols": [_vp, _vp, _i64, _int, _vp],
     "p2t_gl_ops": [_vp, _vp, _vp, _i64, _vp],
     "p2t_lde_from_values": [_vp, _vp, _vp, _vp, _vp, _vp, _i64, _int, _int,

@@ -20,15 +20,26 @@ LAUNCHES = 0                 # kernel launches made by `permute_cols_cuda`
 _constants_on: set = set()   # device indices holding the constant tables
 
 
+def _fast_tables():
+    """The fast partial rounds' tables as one u64 array in the kernel's
+    order: first [12], initial [11 * 11], post [22], m00 [22], v [22 * 11],
+    w [22 * 11]."""
+    t = poseidon.fast_partial_tables(poseidon.ROUND_CONSTANTS, poseidon.MDS)
+    words = (t["first"] + sum(t["initial"], []) + t["post"] + t["m00"]
+             + sum(t["v"], []) + sum(t["w"], []))
+    return gl.to_u64(words)
+
+
 def _upload_constants(device: torch.device) -> None:
     idx = device.index if device.index is not None else torch.cuda.current_device()
     if idx in _constants_on:
         return
     rc = gl.to_u64(poseidon.ROUND_CONSTANTS).reshape(-1)
     mds = gl.to_u64(poseidon.MDS).reshape(-1)
+    fast = _fast_tables()
     with torch.cuda.device(idx):
         _build.check(_build.lib().p2t_poseidon_set_constants(
-            rc.ctypes.data, mds.ctypes.data), "poseidon constant upload")
+            rc.ctypes.data, mds.ctypes.data, fast.ctypes.data), "poseidon constant upload")
     _constants_on.add(idx)
 
 
@@ -59,12 +70,15 @@ def permute_cols_cuda(s: torch.Tensor,
 
 
 def gl_ops_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Field-layer check of csrc/goldilocks.cuh: [4, n] rows add(a, b),
-    sub(a, b), mul(a, b), neg(a), computed on the card."""
+    """Field-layer check of csrc/goldilocks.cuh, computed on the card: [9, n]
+    rows add(a, b), sub(a, b), mul(a, b), neg(a) for canonical a, b; then,
+    for any u64 a, b, canonical: mul_lazy(a, b), reduce128_lazy(hi=a,
+    lo=b), add_lazy(a, canon(b)), sub_lazy(a, canon(b)), and an Acc of
+    twelve products a * b."""
     if a.shape != b.shape or a.dim() != 1 or a.device.type != "cuda":
         raise ValueError("gl_ops_cuda takes two equal 1-D CUDA tensors")
     a, b = a.contiguous(), b.contiguous()
-    out = torch.empty((4, a.shape[0]), dtype=gl.DTYPE, device=a.device)
+    out = torch.empty((9, a.shape[0]), dtype=gl.DTYPE, device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         _build.check(_build.lib().p2t_gl_ops(

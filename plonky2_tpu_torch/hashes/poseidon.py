@@ -94,6 +94,75 @@ ROUND_CONSTANTS, MDS = _load_constants()
 MDS_SMALL = max(max(row) for row in MDS) < (1 << 20)
 
 
+def _mat_inv(m: list[list[int]]) -> list[list[int]]:
+    """Inverse of a square matrix over the field (Gauss-Jordan)."""
+    n = len(m)
+    a = [list(row) + [int(i == j) for j in range(n)] for i, row in enumerate(m)]
+    for c in range(n):
+        piv = next(r for r in range(c, n) if a[r][c])
+        a[c], a[piv] = a[piv], a[c]
+        inv = pow(a[c][c], gl.P - 2, gl.P)
+        a[c] = [x * inv % gl.P for x in a[c]]
+        for r in range(n):
+            if r != c and a[r][c]:
+                f = a[r][c]
+                a[r] = [(x - f * y) % gl.P for x, y in zip(a[r], a[c])]
+    return [row[n:] for row in a]
+
+
+def _mat_mul(a, b) -> list[list[int]]:
+    return [[sum(x * y for x, y in zip(row, col)) % gl.P for col in zip(*b)] for row in a]
+
+
+def _mat_vec(m, x) -> list[int]:
+    return [sum(a * b for a, b in zip(row, x)) % gl.P for row in m]
+
+
+@functools.lru_cache(maxsize=None)
+def _fast_partial_tables(rc: tuple, mds: tuple) -> dict:
+    m_inv = _mat_inv(mds)
+    c = [list(row) for row in rc]
+    lo, hi = FULL_ROUNDS // 2, FULL_ROUNDS // 2 + PARTIAL_ROUNDS - 1
+    post = [0] * PARTIAL_ROUNDS
+    for r in range(hi, lo, -1):
+        u = _mat_vec(m_inv, c[r])
+        c[r - 1] = [c[r - 1][0]] + [(x + y) % gl.P for x, y in zip(c[r - 1][1:], u[1:])]
+        post[r - lo - 1] = u[0]
+    m00, v, w = [0] * PARTIAL_ROUNDS, [None] * PARTIAL_ROUNDS, [None] * PARTIAL_ROUNDS
+    x = [list(row) for row in mds]
+    for i in range(PARTIAL_ROUNDS - 1, -1, -1):
+        x_hat = [row[1:] for row in x[1:]]
+        m00[i] = x[0][0]
+        v[i] = _mat_mul([x[0][1:]], _mat_inv(x_hat))[0]
+        w[i] = [row[0] for row in x[1:]]
+        x = [list(mds[0])] + _mat_mul(x_hat, mds[1:])          # diag(1, x_hat) . mds
+    return {"first": c[lo], "initial": x_hat, "post": post, "m00": m00, "v": v, "w": w}
+
+
+def fast_partial_tables(round_constants, mds) -> dict:
+    """Tables of plonky2's fast partial rounds for these constants and this
+    MDS matrix (any MDS matrix: every square submatrix is invertible), as
+    Python ints.  A round is s <- M . sbox(s + c_r) on column vectors; the
+    partial rounds 4 .. 25 become:
+
+      s += first                       (all 12 lanes)
+      s[1:] = initial . s[1:]          (11 x 11)
+      for i in 0 .. 21:
+          s0 = sbox(s0) + post[i]
+          s0, s[1:] = m00[i] s0 + v[i] . s[1:],  s[1:] + w[i] s0
+
+    Each c_r (r = 25 .. 5) is pushed back through M: u = M^-1 c_r adds
+    u[1:] to c_{r-1} and leaves u[0] as post[r - 5] (post[21] = 0), so
+    first is the resulting c_4.  Going back from the last round, X = M
+    factors as S_i . diag(1, X^) with X^ = X[1:, 1:], S_i = [[m00, v], [w,
+    I]]; the diag(1, X^) part commutes with the next S-box (lane 0 only) and
+    joins the round before: X <- diag(1, X^) . M.  The last X^ is `initial`.
+    Keys: "first" [12], "initial" [11][11], "post", "m00" [22], "v", "w"
+    [22][11]."""
+    return _fast_partial_tables(tuple(map(tuple, round_constants)),
+                                tuple(map(tuple, mds)))
+
+
 @functools.lru_cache(maxsize=None)
 def rc_tensor(device) -> torch.Tensor:
     return gl.to_tensor(ROUND_CONSTANTS, device)          # [30, 12]

@@ -72,6 +72,78 @@ def test_permute_scalar_equals_jax():
         jpos.hash_no_pad_s(state + state[:5])
 
 
+def _dense_permute_s(state, rc, mds):
+    """Poseidon with these constants and this matrix, every round dense."""
+    P = gl.P
+    s = list(state)
+    for r in range(poseidon.N_ROUNDS):
+        s = [(x + c) % P for x, c in zip(s, rc[r])]
+        full = r < 4 or r >= 4 + poseidon.PARTIAL_ROUNDS
+        s = [pow(x, 7, P) if full or i == 0 else x for i, x in enumerate(s)]
+        s = [sum(m * x for m, x in zip(row, s)) % P for row in mds]
+    return s
+
+
+def _fast_permute_s(state, rc, mds):
+    """The same permutation with the partial rounds in the fast form of
+    `poseidon.fast_partial_tables`, written out as the kernel runs it."""
+    P = gl.P
+    t = poseidon.fast_partial_tables(rc, mds)
+
+    def full_round(s, r):
+        s = [pow((x + c) % P, 7, P) for x, c in zip(s, rc[r])]
+        return [sum(m * x for m, x in zip(row, s)) % P for row in mds]
+
+    s = list(state)
+    for r in range(4):
+        s = full_round(s, r)
+    s = [(x + c) % P for x, c in zip(s, t["first"])]
+    s = [s[0]] + [sum(m * x for m, x in zip(row, s[1:])) % P for row in t["initial"]]
+    for i in range(poseidon.PARTIAL_ROUNDS):
+        s0 = (pow(s[0], 7, P) + t["post"][i]) % P
+        new0 = (t["m00"][i] * s0 + sum(v * x for v, x in zip(t["v"][i], s[1:]))) % P
+        s = [new0] + [(x + w * s0) % P for x, w in zip(s[1:], t["w"][i])]
+    for r in range(4 + poseidon.PARTIAL_ROUNDS, poseidon.N_ROUNDS):
+        s = full_round(s, r)
+    return s
+
+
+def _cauchy_mds_and_constants(seed):
+    """A 12 x 12 Cauchy matrix 1 / (x_i - y_j) over distinct x and y, which
+    is MDS, and random round constants."""
+    rng = np.random.RandomState(seed)
+    xy = []
+    while len(xy) < 24:
+        v = int(rng.randint(0, 2**62)) * 3 % gl.P
+        if v not in xy:
+            xy.append(v)
+    x, y = xy[:12], xy[12:]
+    mds = [[pow((a - b) % gl.P, gl.P - 2, gl.P) for b in y] for a in x]
+    rc = [[int(v) for v in row] for row in rand_u64(poseidon.N_ROUNDS, 12)]
+    return rc, mds
+
+
+EDGE_STATES = [[v] * 12 for v in (0, 1, 2**32, 2**63, gl.P - 1)]
+
+
+@pytest.mark.parametrize("matrix", ["plonky2", "cauchy"])
+def test_fast_partial_rounds_equal_dense(matrix):
+    # plonky2's matrix: against the JAX scalar permutation.  A Cauchy matrix
+    # with random constants covers the derivation for a dense, large-entry
+    # matrix, against a dense permutation with that matrix.
+    if matrix == "plonky2":
+        rc, mds, want = poseidon.ROUND_CONSTANTS, poseidon.MDS, jpos.permute_s
+    else:
+        rc, mds = _cauchy_mds_and_constants(11)
+        assert max(max(row) for row in mds) >= 1 << 20
+        want = lambda s: _dense_permute_s(s, rc, mds)      # noqa: E731
+    t = poseidon.fast_partial_tables(rc, mds)
+    assert t["m00"] == [mds[0][0]] * poseidon.PARTIAL_ROUNDS and t["post"][-1] == 0
+    states = EDGE_STATES + [[int(v) for v in col] for col in rand_u64(12, 24).T]
+    for s in states:
+        assert _fast_permute_s(s, rc, mds) == want(s)
+
+
 def test_wrapper_runs_plain_on_cpu_and_refuses_other_devices():
     s = gl.to_tensor(rand_u64(12, 8))
     before = cuda_poseidon.LAUNCHES
