@@ -9,16 +9,19 @@ kernel against its plain torch version there:
   1. device      name, power limit, SM clock; fails without CUDA
   2. build       nvcc builds plonky2_tpu_torch/csrc/*.cu, one process per
                  source; ptxas's register and spill report; each kernel's
-                 SASS instruction and multiply counts (bench/sass.py)
-  3. field       csrc/goldilocks.cuh against the plain field ops
+                 SASS instruction and multiply counts (bench/sass.py), per
+                 butterfly for K3's kernels
+  3. field       csrc/goldilocks.cuh against the plain field ops, K3's
+                 lazy butterfly included
   4. K1          Poseidon kernel against the plain permutation, with both
                  MDS layers (small-entry split and generic mulmods), and
                  at ragged batch widths
   5. K2          LDE kernel, bit-reversed (K2-rev) and natural (K2-nat)
                  order, against the plain LDEs
   6. K3          tiled four-step LDE kernel against the plain LDE, at
-                 config 3's wire and Z shapes, config 4's size, 2^20, and
-                 the odd sizes 2^15 and 2^17 (n1 != n2)
+                 config 3's wire and Z shapes, config 4's size, 2^18
+                 to 2^20 (three register groups), the odd sizes 2^15 and
+                 2^17 (n1 != n2), one polynomial, and rates 0, 1 and 6
   7. tiny        the golden tiny circuit's proof sha256
   8. config 1    proof bytes equal the JAX package's (tests/torch_port_vectors.json)
   9. config 3    the same, proved twice
@@ -40,6 +43,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -139,6 +143,17 @@ def lde_work(b: int, n: int, rate_bits: int, table_words: int):
     return nbytes, b * mulmods * MULMOD_IMADS
 
 
+def k3_table_words(log_n: int, rate_bits: int) -> int:
+    """Words of the four-step identity's tables for K3's bound, as
+    `pallas_lde_tiled._build_tiled` derives them: the column and row roots
+    (n1 / 2 and n2 / 2 each way), the inverse and forward inter-pass
+    twiddles [n1, n2], and the scale factors u [2^rate, n1], v [2^rate,
+    n2].  (The JAX kernel multiplies u and v out into a [2^rate, n] scale
+    before its passes; the identity needs only the factors.)"""
+    n1, n2 = 1 << (log_n // 2), 1 << (log_n - log_n // 2)
+    return n1 + n2 + 2 * n1 * n2 + ((n1 + n2) << rate_bits)
+
+
 def poseidon_work(b: int):
     """(bytes, 32-bit multiplies) of b permutations, counted as the least
     work plonky2's fast partial rounds need: 118 S-boxes of 4 mulmods; the
@@ -176,6 +191,27 @@ def phase_device():
 # and the 22 partial rounds run on one of their trips.
 K1_LOOP_TRIPS = (8, 22)
 
+# The rate at which K3's pass C (2^rate trips of its coset loop) is counted.
+K3_SASS_RATE = 3
+
+
+def k3_loop_trips(kernel: str, log_l: int):
+    """(trip counts of the SASS loops of K3's kernel<log_l> in address
+    order, butterflies one thread runs per block), from the built library's
+    own geometry (`cuda_lde_tiled.geometry`): a register group of k stages
+    runs 2^(log tile - k) / threads trips and is no loop at one trip; C's
+    coset loop comes before its groups' loops."""
+    from plonky2_tpu_torch.ntt.cuda_lde_tiled import geometry
+    geo = geometry(log_l)
+    log_t = geo["log_tile_c"] if kernel == "col_forward_kernel" else geo["log_tile"]
+    reps = [(1 << (log_t - k)) // geo["threads"] for k in geo["groups"]]
+    trips = [r for r in reps if r > 1]
+    butterflies = (1 << (log_t - 1)) * log_l // geo["threads"]
+    if kernel == "col_forward_kernel":
+        trips = [1 << K3_SASS_RATE] + trips
+        butterflies <<= K3_SASS_RATE
+    return trips, butterflies
+
 
 def phase_build():
     from plonky2_tpu_torch import _build
@@ -199,6 +235,21 @@ def phase_build():
                         f"({lp['multiplies']} multiplies)" for lp in c["loops"])
         log(f"[sass] {name}: {c['instructions']} instructions, {c['multiplies']} "
             f"integer multiplies, {c['imad_other']} IMAD moves/shifts/adds{loops}")
+        k3 = re.search(r"(col_inverse_kernel|row_inverse_kernel|col_forward_kernel|"
+                       r"row_forward_kernel)<(\d+)>", name)
+        if k3:
+            trips, butterflies = k3_loop_trips(k3.group(1), int(k3.group(2)))
+            if len(c["loops"]) != len(trips):
+                raise AssertionError(
+                    f"{name}: {len(c['loops'])} SASS loops, but the library's register "
+                    f"groups give {len(trips)} ({trips})")
+            run = sass.per_thread(c, trips)
+            log(f"[sass]   per block and thread (loops run {tuple(trips)} times"
+                + (f", rate {K3_SASS_RATE}" if k3.group(1) == "col_forward_kernel" else "")
+                + f"): {run['instructions']} instructions, {run['multiplies']} integer "
+                f"multiplies for {butterflies} butterflies: "
+                f"{run['instructions'] / butterflies:.1f} instructions and "
+                f"{run['multiplies'] / butterflies:.1f} multiplies a butterfly")
         if "permute_cols_kernel" in name:
             try:
                 run = sass.per_thread(c, K1_LOOP_TRIPS)
@@ -222,7 +273,7 @@ def phase_field(device):
     a = np.concatenate([np.repeat(edge, len(edge)), rand])
     b = np.concatenate([np.tile(edge, len(edge)), rand[::-1]])
     ta, tb = gl.to_tensor(a, device), gl.to_tensor(b, device)
-    got = gl_ops_cuda(ta, tb)[:4]
+    got = gl_ops_cuda(ta, tb, tb)[:4]
     want = torch.stack([gl.add(ta, tb), gl.sub(ta, tb), gl.mul(ta, tb), gl.neg(ta)])
     torch.cuda.synchronize()
     require_equal("goldilocks.cuh", got, want)
@@ -239,7 +290,12 @@ def phase_field(device):
     a = np.concatenate([np.repeat(edge, len(edge)), rand])
     b = np.concatenate([np.tile(edge, len(edge)), rand[::-1]])
     ta, tb = gl.to_tensor(a, device), gl.to_tensor(b, device)
-    got = gl_ops_cuda(ta, tb)[4:]
+    # K3's butterfly takes a twiddle too: random over [0, 2^64)
+    tw = gl.to_tensor((rng.randint(0, 2**32, len(a), dtype=np.int64).astype(np.uint64)
+                       << np.uint64(32)) | rng.randint(0, 2**32, len(a), dtype=np.int64)
+                      .astype(np.uint64), device)
+    out = gl_ops_cuda(ta, tb, tw)
+    got = out[4:9]
     ca, cb = gl._canon(ta), gl._canon(tb)
     prod = gl.mul(ca, cb)
     want = torch.stack([prod, gl.add(gl.mul(ca, gl.full_like(ca, gl.EPSILON)), cb),
@@ -249,6 +305,15 @@ def phase_field(device):
     log(f"[field] lazy mul, reduce128, add, sub and a 12-product Acc bit-equal to plain gl "
         f"on {len(a)} pairs of any u64 (all pairs of the edges above and p, p+1, "
         f"2^64-2^31, 2^64-2, 2^64-1, and random pairs)")
+    # K3's butterfly on the same pairs of any u64 and the random twiddles:
+    # (e, o, w) -> (e + o, (e - o) * w), and with w = 1.
+    got = out[9:]
+    want = torch.stack([gl.add(ca, cb), gl.mul(gl.sub(ca, cb), gl._canon(tw)),
+                        gl.add(ca, cb), gl.sub(ca, cb)])
+    torch.cuda.synchronize()
+    require_equal("goldilocks.cuh dif_lazy", got, want)
+    log(f"[field] lazy DIF butterfly dif_lazy (with a twiddle and with w = 1) bit-equal to "
+        f"plain gl on the same {len(a)} pairs of any u64, with random twiddles over [0, 2^64)")
 
 
 def phase_k1(device):
@@ -326,12 +391,16 @@ def phase_k3(device):
     rng = np.random.RandomState(3)
     kernel, plain = cuda_lde_tiled.lde_from_values_tiled_rev_cuda, ntt.lde_from_values_rev
     out = _lde_check("K3", device, rng, kernel, plain, ((135, 1 << 14), (20, 1 << 14)), 3)
-    # odd log n: n1 = 2^(log n // 2) < n2, so the tiles, row groups and
-    # tables take other shapes than in the square case
+    # larger and odd log n (n1 = 2^(log n // 2) < n2 when log n is odd):
+    # the tiles, row groups, register groups and tables take other shapes
     out.update(_lde_check("K3", device, rng, kernel, plain,
-                          ((135, 1 << 15), (135, 1 << 16), (20, 1 << 17), (2, 1 << 20)), 3,
-                          plain_brackets=2))
+                          ((135, 1 << 15), (135, 1 << 16), (20, 1 << 17), (2, 1 << 18),
+                           (2, 1 << 19), (2, 1 << 20)), 3, plain_brackets=2))
     out.update(_lde_check("K3", device, rng, kernel, plain, ((3, 1 << 14),), 6))
+    # one polynomial, and the rates whose coset loop runs once or twice
+    out.update(_lde_check("K3", device, rng, kernel, plain, ((1, 1 << 14),), 3))
+    for rate_bits in (0, 1):
+        out.update(_lde_check("K3", device, rng, kernel, plain, ((20, 1 << 14),), rate_bits))
     torch.cuda.empty_cache()
     return out
 
@@ -457,8 +526,10 @@ def main() -> int:
                 raise AssertionError(f"kernel {k} was not launched on the {path} path")
 
     # Each kernel at the shape its main path gives it; launches summed over
-    # the paths' runs.  The LDE kernels' bytes include their host tables.
-    from plonky2_tpu_torch.ntt import COSET_SHIFT, cuda_lde, cuda_lde_tiled
+    # the paths' runs.  The LDE kernels' bytes include twiddle tables: K2's
+    # own, and for K3 those of the four-step identity as the JAX kernel
+    # builds them (k3_table_words), whatever tables K3 itself reads.
+    from plonky2_tpu_torch.ntt import COSET_SHIFT, cuda_lde
 
     def table_words(module, log_n):
         return sum(t.numel() for t in module._tables(log_n, 3, COSET_SHIFT, device))
@@ -475,7 +546,7 @@ def main() -> int:
          k2_nat[(135, 4096, 3)], lde_work(135, 4096, 3, table_words(cuda_lde, 12))),
         ("K3", "lde_from_values_tiled_rev [135, 16384] rate 3 (config 3 wires)",
          "plonky2_tpu_torch/csrc/lde_tiled.cu", "plonky2_tpu/ntt/pallas_lde_tiled.py:338",
-         k3[(135, 1 << 14, 3)], lde_work(135, 1 << 14, 3, table_words(cuda_lde_tiled, 14))),
+         k3[(135, 1 << 14, 3)], lde_work(135, 1 << 14, 3, k3_table_words(14, 3))),
     ]
     records = []
     for key, label, source, replaces, (err, ms, plain_ms), (nbytes, imads) in rows:

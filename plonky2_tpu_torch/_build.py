@@ -36,10 +36,11 @@ _int = ctypes.c_int
 _SIGNATURES = {
     "p2t_poseidon_set_constants": [_vp, _vp, _vp],
     "p2t_poseidon_permute_cols": [_vp, _vp, _i64, _int, _vp],
-    "p2t_gl_ops": [_vp, _vp, _vp, _i64, _vp],
+    "p2t_gl_ops": [_vp, _vp, _vp, _vp, _i64, _vp],
     "p2t_lde_from_values": [_vp, _vp, _vp, _vp, _vp, _vp, _i64, _int, _int,
                             ctypes.c_uint64, _int, _vp],
-    "p2t_lde_tiled_rev": [_vp] * 12 + [_i64, _int, _int, _int, ctypes.c_uint64, _vp],
+    "p2t_lde_tiled_rev": [_vp] * 11 + [_i64, _int, _int, _int, _vp],
+    "p2t_lde_tiled_geometry": [_int, _vp],
 }
 
 

@@ -118,6 +118,28 @@ __device__ __forceinline__ uint64_t sub_lazy(uint64_t a, uint64_t b) {
     return a < b ? d - EPSILON : d;
 }
 
+// Decimation-in-frequency butterfly on lazy values, (e, o, w) -> (e + o,
+// (e - o) * w): e, o and w are any u64, and so are the results.  o is made
+// canonical once (o < 2^64 < 2p, so one subtraction of p does it), which is
+// what add_lazy and sub_lazy ask of their second operand; each of them
+// then returns a u64 (see above), and mul_lazy takes and returns any u64.
+// So a chain of butterflies never wraps twice, whatever its length, and a
+// value is made canonical once, at the store.
+__device__ __forceinline__ void dif_lazy(uint64_t& e, uint64_t& o, uint64_t w) {
+    const uint64_t oc = canon(o);
+    const uint64_t d = sub_lazy(e, oc);
+    e = add_lazy(e, oc);
+    o = mul_lazy(d, w);
+}
+
+// The same butterfly for w = 1.
+__device__ __forceinline__ void dif_lazy(uint64_t& e, uint64_t& o) {
+    const uint64_t oc = canon(o);
+    const uint64_t d = sub_lazy(e, oc);
+    e = add_lazy(e, oc);
+    o = d;
+}
+
 // A sum of up to 2^32 products of two lazy values, kept exactly as
 // top * 2^128 + hi * 2^64 + lo and reduced once.
 struct Acc {

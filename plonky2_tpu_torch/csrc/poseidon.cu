@@ -180,9 +180,11 @@ permute_cols_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
 // Field-layer check: rows of `out` are add, sub, mul, neg(a) of canonical
 // a and b, then, for any u64 a and b and made canonical: mul_lazy(a, b),
 // reduce128_lazy(hi = a, lo = b), add_lazy(a, canon(b)), sub_lazy(a,
-// canon(b)) and an Acc of twelve products a * b.
+// canon(b)) and an Acc of twelve products a * b; then K3's lazy butterfly
+// (e, o) of dif_lazy(a, b, w) and of dif_lazy(a, b), w = 1.
 __global__ void gl_ops_kernel(const uint64_t* __restrict__ a, const uint64_t* __restrict__ b,
-                              uint64_t* __restrict__ out, int64_t n) {
+                              const uint64_t* __restrict__ w, uint64_t* __restrict__ out,
+                              int64_t n) {
     const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     const uint64_t x = a[i], y = b[i];
@@ -197,6 +199,14 @@ __global__ void gl_ops_kernel(const uint64_t* __restrict__ a, const uint64_t* __
     Acc acc;
     for (int k = 0; k < 12; ++k) acc.mul_add(x, y);
     out[8 * n + i] = canon(acc.reduce());
+    uint64_t e = x, o = y;
+    dif_lazy(e, o, w[i]);
+    out[9 * n + i] = canon(e);
+    out[10 * n + i] = canon(o);
+    e = x, o = y;
+    dif_lazy(e, o);
+    out[11 * n + i] = canon(e);
+    out[12 * n + i] = canon(o);
 }
 
 }  // namespace
@@ -234,11 +244,12 @@ int p2t_poseidon_permute_cols(const uint64_t* in, uint64_t* out, int64_t batch, 
     return (int)cudaGetLastError();
 }
 
-// a, b: device [n] u64; out: device [9, n] u64.
-int p2t_gl_ops(const uint64_t* a, const uint64_t* b, uint64_t* out, int64_t n, void* stream) {
+// a, b, w: device [n] u64; out: device [13, n] u64.
+int p2t_gl_ops(const uint64_t* a, const uint64_t* b, const uint64_t* w, uint64_t* out, int64_t n,
+               void* stream) {
     if (n <= 0) return 0;
     const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
-    gl_ops_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(a, b, out, n);
+    gl_ops_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(a, b, w, out, n);
     return (int)cudaGetLastError();
 }
 

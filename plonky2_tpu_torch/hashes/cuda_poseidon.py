@@ -69,19 +69,20 @@ def permute_cols_cuda(s: torch.Tensor,
     return out
 
 
-def gl_ops_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Field-layer check of csrc/goldilocks.cuh, computed on the card: [9, n]
-    rows add(a, b), sub(a, b), mul(a, b), neg(a) for canonical a, b; then,
-    for any u64 a, b, canonical: mul_lazy(a, b), reduce128_lazy(hi=a,
-    lo=b), add_lazy(a, canon(b)), sub_lazy(a, canon(b)), and an Acc of
-    twelve products a * b."""
-    if a.shape != b.shape or a.dim() != 1 or a.device.type != "cuda":
-        raise ValueError("gl_ops_cuda takes two equal 1-D CUDA tensors")
-    a, b = a.contiguous(), b.contiguous()
-    out = torch.empty((9, a.shape[0]), dtype=gl.DTYPE, device=a.device)
+def gl_ops_cuda(a: torch.Tensor, b: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Field-layer check of csrc/goldilocks.cuh, computed on the card: [13,
+    n] rows add(a, b), sub(a, b), mul(a, b), neg(a) for canonical a, b;
+    then, for any u64 a, b, w, canonical: mul_lazy(a, b), reduce128_lazy(hi
+    = a, lo = b), add_lazy(a, canon(b)), sub_lazy(a, canon(b)), an Acc of
+    twelve products a * b, and the (e, o) of K3's butterfly dif_lazy(a, b,
+    w) and of dif_lazy(a, b) (w = 1)."""
+    if not (a.shape == b.shape == w.shape and a.dim() == 1 and a.device.type == "cuda"):
+        raise ValueError("gl_ops_cuda takes three equal 1-D CUDA tensors")
+    a, b, w = a.contiguous(), b.contiguous(), w.contiguous()
+    out = torch.empty((13, a.shape[0]), dtype=gl.DTYPE, device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         _build.check(_build.lib().p2t_gl_ops(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0], stream),
+            a.data_ptr(), b.data_ptr(), w.data_ptr(), out.data_ptr(), a.shape[0], stream),
             "goldilocks check launch")
     return out

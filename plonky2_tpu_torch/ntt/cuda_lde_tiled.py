@@ -11,11 +11,14 @@ raises.  There is no probe and no fallback.
 The host tables follow the JAX kernel's four-step identity: the inter-pass
 twiddle `inter_twiddle` and the coset-scale factors `scale_vectors` equal
 `_inter_twiddle` and `_scale_vectors` of `pallas_lde_tiled.py` for the same
-(log n, log n1).
+(log n, log n1).  The kernel reads two tables derived from them:
+`inverse_twiddle` (1/n folded into pass A's twiddle) and `coset_twiddle`
+(the coset scale's column-constant factor folded into pass C's).
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -70,21 +73,43 @@ def scale_vectors(log_n: int, log_n1: int, rate_bits: int, shift: int):
     return np.stack(u), np.stack(v)
 
 
+def inverse_twiddle(log_n: int, log_n1: int, device="cpu") -> torch.Tensor:
+    """[n1, n2]: pass A's factor after the column transform, w_n^(-rev_n1(j1)
+    * i2) / n at (j1, i2) (the inverse transform's 1/n folded in)."""
+    t = gl.to_tensor(inter_twiddle(log_n, log_n1, -1), device)
+    return gl.mul(t, gl.full((), gl.inv_s(1 << log_n), device))
+
+
+def coset_twiddle(log_n: int, log_n1: int, rate_bits: int, shift: int,
+                  device="cpu") -> torch.Tensor:
+    """[2^rate, n1, n2]: pass C's factor after the column transform of coset
+    block kk, v[kk][j2] * w_n^(rev_n1(r1) * j2) at (kk, r1, j2).  The coset
+    scale's factor v is constant down a column, so it commutes with the
+    column transform and joins the four-step twiddle; the factor u[kk][j1]
+    is applied before the transform.  It holds 2^rate * n words, 1/batch of
+    the LDE it serves (64 MB at n = 2^20, rate 3), kept on the card by
+    `_tables` for each (log n, rate, shift)."""
+    _, v = scale_vectors(log_n, log_n1, rate_bits, shift)
+    t = gl.to_tensor(inter_twiddle(log_n, log_n1, +1), device)
+    return gl.mul(gl.to_tensor(v, device)[:, None, :], t[None])
+
+
 @functools.lru_cache(maxsize=None)
 def _tables(log_n: int, rate_bits: int, shift: int, device):
-    """Device tables of one (log n, rate, shift): the column and row twiddles
-    [n1/2], [n2/2] (inverse and forward), the inter-pass twiddles [n1, n2]
-    and the coset-scale factors."""
+    """Device tables of one (log n, rate, shift), in the C interface's
+    order: the column and row twiddles [n1/2], [n2/2] (inverse and
+    forward), `inverse_twiddle`, `coset_twiddle` and the scale u [2^rate,
+    n1]."""
     log_n1, log_n2 = split_log(log_n)
     out = []
     for log_len in (log_n1, log_n2):
         w = gl.primitive_root_of_unity(log_len)
-        out.append(gl.host_powers(gl.inv_s(w), 1 << (log_len - 1)))
-        out.append(gl.host_powers(w, 1 << (log_len - 1)))
-    out.append(inter_twiddle(log_n, log_n1, -1))
-    out.append(inter_twiddle(log_n, log_n1, +1))
-    out.extend(scale_vectors(log_n, log_n1, rate_bits, shift))
-    return tuple(gl.to_tensor(t, device) for t in out)
+        out.append(gl.to_tensor(gl.host_powers(gl.inv_s(w), 1 << (log_len - 1)), device))
+        out.append(gl.to_tensor(gl.host_powers(w, 1 << (log_len - 1)), device))
+    out.append(inverse_twiddle(log_n, log_n1, device))
+    out.append(coset_twiddle(log_n, log_n1, rate_bits, shift, device))
+    out.append(gl.to_tensor(scale_vectors(log_n, log_n1, rate_bits, shift)[0], device))
+    return tuple(out)
 
 
 def lde_from_values_tiled_rev_cuda(values: torch.Tensor, rate_bits: int,
@@ -99,9 +124,18 @@ def lde_from_values_tiled_rev_cuda(values: torch.Tensor, rate_bits: int,
         scratch = torch.empty((b, 1 << log_n), dtype=gl.DTYPE, device=values.device)
         return _build.lib().p2t_lde_tiled_rev(
             v.data_ptr(), coeffs.data_ptr(), lde.data_ptr(), scratch.data_ptr(),
-            *(t.data_ptr() for t in tables), b, log_n1, log_n2, rate_bits,
-            gl.inv_s(1 << log_n), stream)
+            *(t.data_ptr() for t in tables), b, log_n1, log_n2, rate_bits, stream)
     coeffs, lde, launched = run_lde(
         "K3", values, rate_bits, supported, f"2^{MIN_LOG_N} <= n <= 2^{MAX_LOG_N}", launch)
     LAUNCHES += launched
     return coeffs, lde
+
+
+def geometry(log_l: int) -> dict:
+    """The built kernel's own geometry for a transform of 2^log_l points:
+    {"threads" a block, "log_tile" of passes A, B and D, "log_tile_c" of
+    pass C, "groups": the stages of each register group, top bits first}."""
+    out = (ctypes.c_int * 6)()
+    _build.check(_build.lib().p2t_lde_tiled_geometry(log_l, out), f"K3 geometry of 2^{log_l}")
+    return {"threads": out[0], "log_tile": out[1], "log_tile_c": out[2],
+            "groups": tuple(k for k in out[3:] if k)}

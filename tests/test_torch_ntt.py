@@ -22,6 +22,7 @@ from plonky2_tpu.ntt.pallas_lde import lde_from_values_pallas, lde_from_values_p
 from plonky2_tpu_torch.field import gl
 from plonky2_tpu_torch import ntt
 from plonky2_tpu_torch.ntt import cuda_lde, cuda_lde_tiled
+from plonky2_tpu_torch.ntt.ntt import _bitrev_perm
 
 RNG = np.random.RandomState(0xF00D)
 
@@ -163,3 +164,100 @@ def test_lde_natural_equals_jax_and_pallas_interpret():
     assert _pair(cg, cp) and _pair(lg, lp)
     ca, la = ntt.lde_from_values_auto(gl.to_tensor(vals), 3)
     assert torch.equal(ca, cg) and torch.equal(la, lg)
+
+
+# (log n, log n1, rate): the kernel's square split, its odd split and the
+# largest coset table of the main paths' sizes
+@pytest.mark.parametrize("log_n,log_n1,rate", [(14, 7, 3), (15, 7, 2), (16, 8, 1)])
+def test_k3_derived_tables_equal_jax(log_n, log_n1, rate):
+    # pass A's twiddle with 1/n folded in, and pass C's coset twiddle (the
+    # scale's column-constant factor v times the four-step twiddle), held
+    # against the JAX kernel's tables multiplied out in Python ints
+    p = gl.P
+    t_inv = pallas_lde_tiled._inter_twiddle(log_n, log_n1, -1).astype(object)
+    n_inv = pow(1 << log_n, p - 2, p)
+    assert np.array_equal(gl.from_tensor(cuda_lde_tiled.inverse_twiddle(log_n, log_n1)),
+                          (t_inv * n_inv % p).astype(np.uint64))
+    t_fwd = pallas_lde_tiled._inter_twiddle(log_n, log_n1, +1).astype(object)
+    _, jv = pallas_lde_tiled._scale_vectors(log_n, log_n1, rate, ntt.COSET_SHIFT)
+    want = (jv.astype(object)[:, None, :] * t_fwd[None] % p).astype(np.uint64)
+    got = cuda_lde_tiled.coset_twiddle(log_n, log_n1, rate, ntt.COSET_SHIFT)
+    assert np.array_equal(gl.from_tensor(got), want)
+
+
+# K3's register groups (csrc/lde_tiled.cu `group_k`): a transform of
+# 2^log_l points runs its stages as groups of k in registers, from the top
+# index bits down.  chip_smoke.py reads the built kernel's own split.
+K3_GROUPS = {7: (4, 3), 8: (4, 4), 9: (3, 3, 3), 10: (4, 3, 3)}
+
+
+def _k3_roots(log_l, sign):
+    """[2^(log_l - 1)] powers of w_(2^log_l)^sign, a pass's transform roots."""
+    w = gl.primitive_root_of_unity(log_l)
+    return gl.to_tensor(gl.host_powers(w if sign > 0 else gl.inv_s(w), 1 << (log_l - 1)))
+
+
+def _k3_dif_last_axis(x, tw, log_l):
+    """DIF over the last axis in K3's register groups: group (k, b) holds
+    elements (hi << (b + k)) | (j << b) | lo; its stage of half-size
+    2^(b + t) multiplies by tw[((j mod 2^t) << b | lo) << (log_l - 1 - b - t)]."""
+    shape, b = x.shape, log_l
+    for k in K3_GROUPS[log_l]:
+        b -= k
+        lo = torch.arange(1 << b)
+        for t in range(k - 1, -1, -1):
+            y = x.reshape(*shape[:-1], -1, 1 << (k - 1 - t), 2, 1 << t, 1 << b)
+            q = torch.arange(1 << t)
+            w = tw[((q[:, None] << b) | lo[None, :]) << (log_l - 1 - b - t)]
+            e, o = y[..., 0, :, :], y[..., 1, :, :]
+            x = torch.stack([gl.add(e, o), gl.mul(gl.sub(e, o), w)], dim=-3).reshape(shape)
+    return x
+
+
+def _k3_pass_model(vals, rate):
+    """K3's four passes in torch: A column inverse DIF and `inverse_twiddle`;
+    B row inverse DIF and the natural-order store; per coset block, C the
+    scale u, column DIF and `coset_twiddle`, D row DIF."""
+    b, n = vals.shape
+    log_n = n.bit_length() - 1
+    l1, l2 = cuda_lde_tiled.split_log(log_n)
+    n1, n2 = 1 << l1, 1 << l2
+
+    def cols(x, log_l, sign):
+        return _k3_dif_last_axis(x.transpose(-1, -2), _k3_roots(log_l, sign),
+                                 log_l).transpose(-1, -2)
+
+    x = cols(gl.to_tensor(vals).reshape(b, n1, n2), l1, -1)
+    x = _k3_dif_last_axis(gl.mul(x, cuda_lde_tiled.inverse_twiddle(log_n, l1)),
+                          _k3_roots(l2, -1), l2)
+    nat = torch.from_numpy(_bitrev_perm(l1)[:, None] + n1 * _bitrev_perm(l2)[None, :])
+    coeffs = torch.empty((b, n), dtype=gl.DTYPE)
+    coeffs[:, nat.reshape(-1)] = x.reshape(b, n)
+    u, _ = cuda_lde_tiled.scale_vectors(log_n, l1, rate, ntt.COSET_SHIFT)
+    coset_tw = cuda_lde_tiled.coset_twiddle(log_n, l1, rate, ntt.COSET_SHIFT)
+    blocks = []
+    for kk in range(1 << rate):
+        y = cols(gl.mul(coeffs.reshape(b, n1, n2), gl.to_tensor(u[kk])[:, None]), l1, +1)
+        blocks.append(_k3_dif_last_axis(gl.mul(y, coset_tw[kk]), _k3_roots(l2, +1),
+                                        l2).reshape(b, n))
+    return coeffs, torch.cat(blocks, dim=1)
+
+
+# [1, 2^15] is the odd split, n1 < n2
+@pytest.mark.parametrize("rows,log_n,rate", [(2, 14, 3), (1, 15, 2)])
+def test_k3_pass_model_equals_jax(rows, log_n, rate):
+    vals = rand_u64(rows, 1 << log_n)
+    cg, lg = _k3_pass_model(vals, rate)
+    cw, lw = jntt.lde_from_values_rev_jit(jnp.asarray(vals), rate_bits=rate)
+    assert _pair(cg, cw) and _pair(lg, lw)
+
+
+# every split of the kernel, the three-group ones (2^9: 3+3+3, 2^10: 4+3+3)
+# included, which the pass model's sizes do not reach; against the port's
+# plain DIF (held against JAX's in test_transforms_equal_jax)
+@pytest.mark.parametrize("log_l", sorted(K3_GROUPS))
+def test_k3_register_groups_equal_plain_dif(log_l):
+    x = gl.to_tensor(rand_u64(3, 1 << log_l))
+    for sign in (+1, -1):
+        got = _k3_dif_last_axis(x, _k3_roots(log_l, sign), log_l)
+        assert torch.equal(got, ntt.ntt_to_rev(x, inverse=sign < 0))
