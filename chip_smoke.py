@@ -8,16 +8,21 @@ kernel against its plain torch version there:
 
   1. device      name, power limit, SM clock; fails without CUDA
   2. build       nvcc builds plonky2_tpu_torch/csrc/*.cu, one process per
-                 source; ptxas's register and spill report; each kernel's
-                 SASS instruction and multiply counts (bench/sass.py), per
-                 butterfly for K3's kernels
+                 source; ptxas's register and spill report, and each K2
+                 kernel's registers and spills (none allowed); each
+                 kernel's SASS instruction and multiply counts
+                 (bench/sass.py), per butterfly for K2's and K3's
+                 register-group kernels
   3. field       csrc/goldilocks.cuh against the plain field ops, K3's
                  lazy butterfly included
   4. K1          Poseidon kernel against the plain permutation, with both
                  MDS layers (small-entry split and generic mulmods), and
                  at ragged batch widths
   5. K2          LDE kernel, bit-reversed (K2-rev) and natural (K2-nat)
-                 order, against the plain LDEs
+                 order, against the plain LDEs, at config 1's shape, config
+                 2's (2^13), every size of its register-group kernels
+                 (2^11..2^13), the first design's body (n = 4), and rates
+                 0, 1, 3 and 6
   6. K3          tiled four-step LDE kernel against the plain LDE, at
                  config 3's wire and Z shapes, config 4's size, 2^18
                  to 2^20 (three register groups), the odd sizes 2^15 and
@@ -143,6 +148,14 @@ def lde_work(b: int, n: int, rate_bits: int, table_words: int):
     return nbytes, b * mulmods * MULMOD_IMADS
 
 
+def k2_table_words(log_n: int, rate_bits: int) -> int:
+    """Words of the tables for K2's bound, as `pallas_lde._build` derives
+    them: the roots of unity each way (n / 2 words each) and the [2^rate,
+    n] coset scale table, whatever tables K2 itself reads."""
+    n = 1 << log_n
+    return n + (n << rate_bits)
+
+
 def k3_table_words(log_n: int, rate_bits: int) -> int:
     """Words of the four-step identity's tables for K3's bound, as
     `pallas_lde_tiled._build_tiled` derives them: the column and row roots
@@ -213,6 +226,43 @@ def k3_loop_trips(kernel: str, log_l: int):
     return trips, butterflies
 
 
+def k2_loop_trips(log_n: int):
+    """(trip counts of the SASS loops of K2's register-group kernels for
+    2^log_n in address order, butterflies one thread runs per block), from
+    the built library's own geometry (`cuda_lde.geometry`): a register
+    group of k stages runs 2^(log n - k) / threads trips and is no loop at
+    one trip."""
+    from plonky2_tpu_torch.ntt.cuda_lde import geometry
+    geo = geometry(log_n)
+    trips = [r for r in ((1 << (log_n - k)) // geo["threads"] for k in geo["groups"]) if r > 1]
+    return trips, (1 << (log_n - 1)) * log_n // geo["threads"]
+
+
+K2_KERNELS = re.compile(r"lde_kernel|k2_inverse_kernel|k2_forward_kernel")
+
+
+def ptxas_resources(build_log: str) -> dict:
+    """{mangled kernel name: {"registers", "stack", "spill_stores",
+    "spill_loads"}} from ptxas's -v report in an nvcc build log."""
+    out: dict = {}
+    name = None
+    for line in build_log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
 def phase_build():
     from plonky2_tpu_torch import _build
     t0 = time.perf_counter()
@@ -221,10 +271,22 @@ def phase_build():
     log(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)} -c, one process per csrc/*.cu, "
         f"linked into {os.path.relpath(path, ROOT)} in {time.perf_counter() - t0:.2f} s")
     with open(_build.log_path()) as f:
-        for line in f:
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                log("[build] " + line.strip())
+        build_log = f.read()
+    for line in build_log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            log("[build] " + line.strip())
     from plonky2_tpu_torch.bench import sass
+    k2 = {name: r for name, r in ptxas_resources(build_log).items() if K2_KERNELS.search(name)}
+    if not k2:
+        raise AssertionError("no K2 kernel in ptxas's report")
+    for mangled, name in zip(k2, sass._demangle(list(k2))):
+        r = k2[mangled]
+        short = name.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0]
+        log(f"[build] K2 {short}: {r.get('registers')} registers, "
+            f"{r.get('spill_stores')} bytes spill stores, {r.get('spill_loads')} bytes spill "
+            f"loads, {r.get('stack')} bytes stack")
+        if r.get("spill_stores") != 0 or r.get("spill_loads") != 0:
+            raise AssertionError(f"K2 kernel {name} spills (or ptxas gave no spill line): {r}")
     try:
         counts, probes = sass.count(path), sass.probes()
     except (OSError, RuntimeError, subprocess.SubprocessError) as e:
@@ -235,6 +297,18 @@ def phase_build():
                         f"({lp['multiplies']} multiplies)" for lp in c["loops"])
         log(f"[sass] {name}: {c['instructions']} instructions, {c['multiplies']} "
             f"integer multiplies, {c['imad_other']} IMAD moves/shifts/adds{loops}")
+        k2 = re.search(r"k2_(inverse|forward)_kernel<(\d+)", name)
+        if k2:
+            trips, butterflies = k2_loop_trips(int(k2.group(2)))
+            if len(c["loops"]) != len(trips):
+                raise AssertionError(
+                    f"{name}: {len(c['loops'])} SASS loops, but the library's register "
+                    f"groups give {len(trips)} ({trips})")
+            run = sass.per_thread(c, trips)
+            log(f"[sass]   per block and thread (loops run {tuple(trips)} times): "
+                f"{run['instructions']} instructions, {run['multiplies']} integer multiplies "
+                f"for {butterflies} butterflies: {run['instructions'] / butterflies:.1f} "
+                f"instructions and {run['multiplies'] / butterflies:.1f} multiplies a butterfly")
         k3 = re.search(r"(col_inverse_kernel|row_inverse_kernel|col_forward_kernel|"
                        r"row_forward_kernel)<(\d+)>", name)
         if k3:
@@ -371,15 +445,25 @@ def _lde_check(tag, device, rng, kernel, plain, shapes, rate_bits, plain_bracket
     return out
 
 
+# K2's shapes by rate: config 1's wires (2^12) and config 2's (2^13); every
+# size of the register-group kernels (2^11..2^13) and the first design's
+# body (n = 4); one polynomial; and the rates whose coset grid is 1, 2 or
+# 64 blocks a polynomial.
+K2_SHAPES = {3: ((135, 1 << 12), (20, 1 << 12), (3, 4), (135, 1 << 13), (1, 1 << 11)),
+             6: ((2, 1 << 13),), 0: ((20, 1 << 12),), 1: ((20, 1 << 12),)}
+
+
 def phase_k2(device):
     import numpy as np
     from plonky2_tpu_torch import ntt
     from plonky2_tpu_torch.ntt import cuda_lde
     rng = np.random.RandomState(2)
-    rev = _lde_check("K2-rev", device, rng, cuda_lde.lde_from_values_rev_cuda,
-                     ntt.lde_from_values_rev, ((135, 4096), (20, 4096), (3, 4)), 3)
-    nat = _lde_check("K2-nat", device, rng, cuda_lde.lde_from_values_cuda,
-                     ntt.lde_from_values, ((135, 4096), (3, 4)), 3)
+    rev, nat = {}, {}
+    for rate_bits, shapes in K2_SHAPES.items():
+        rev.update(_lde_check("K2-rev", device, rng, cuda_lde.lde_from_values_rev_cuda,
+                              ntt.lde_from_values_rev, shapes, rate_bits))
+        nat.update(_lde_check("K2-nat", device, rng, cuda_lde.lde_from_values_cuda,
+                              ntt.lde_from_values, shapes, rate_bits))
     return rev, nat
 
 
@@ -526,39 +610,42 @@ def main() -> int:
                 raise AssertionError(f"kernel {k} was not launched on the {path} path")
 
     # Each kernel at the shape its main path gives it; launches summed over
-    # the paths' runs.  The LDE kernels' bytes include twiddle tables: K2's
-    # own, and for K3 those of the four-step identity as the JAX kernel
-    # builds them (k3_table_words), whatever tables K3 itself reads.
-    from plonky2_tpu_torch.ntt import COSET_SHIFT, cuda_lde
-
-    def table_words(module, log_n):
-        return sum(t.numel() for t in module._tables(log_n, 3, COSET_SHIFT, device))
-
+    # the paths' runs.  The LDE kernels' bytes include the twiddle tables
+    # as the JAX kernels derive them (k2_table_words, k3_table_words),
+    # whatever tables K2 and K3 themselves read.
     rows = [
         ("K1", "poseidon permute_cols [12, 131072] (config 3 leaf hashing)",
          "plonky2_tpu_torch/csrc/poseidon.cu", "plonky2_tpu/hashes/pallas_poseidon.py:191",
          k1[1 << 17], poseidon_work(1 << 17)),
         ("K2-rev", "lde_from_values_rev [135, 4096] rate 3 (config 1 wires)",
          "plonky2_tpu_torch/csrc/lde.cu", "plonky2_tpu/ntt/pallas_lde.py:316",
-         k2_rev[(135, 4096, 3)], lde_work(135, 4096, 3, table_words(cuda_lde, 12))),
+         k2_rev[(135, 4096, 3)], lde_work(135, 4096, 3, k2_table_words(12, 3))),
         ("K2-nat", "lde_from_values [135, 4096] rate 3 (on no prove path)",
          "plonky2_tpu_torch/csrc/lde.cu", "plonky2_tpu/ntt/pallas_lde.py:303",
-         k2_nat[(135, 4096, 3)], lde_work(135, 4096, 3, table_words(cuda_lde, 12))),
+         k2_nat[(135, 4096, 3)], lde_work(135, 4096, 3, k2_table_words(12, 3))),
         ("K3", "lde_from_values_tiled_rev [135, 16384] rate 3 (config 3 wires)",
          "plonky2_tpu_torch/csrc/lde_tiled.cu", "plonky2_tpu/ntt/pallas_lde_tiled.py:338",
          k3[(135, 1 << 14, 3)], lde_work(135, 1 << 14, 3, k3_table_words(14, 3))),
     ]
-    records = []
-    for key, label, source, replaces, (err, ms, plain_ms), (nbytes, imads) in rows:
+    def report(key, label, ms, nbytes, imads):
         bound_ms, bound_by = bound(nbytes, imads, sm_hz)
-        launches = sum(p[key] for p in paths.values())
         log(f"[bound] {key} {label}: {nbytes / 1e6:.1f} MB, {imads / 1e6:.1f} M 32-bit "
             f"multiplies -> bound {bound_ms:.4f} ms ({bound_by}); kernel {ms:.4f} ms, "
             f"{100 * bound_ms / ms:.1f}% of the bound's speed")
+        return bound_ms, bound_by
+
+    records = []
+    for key, label, source, replaces, (err, ms, plain_ms), (nbytes, imads) in rows:
+        bound_ms, bound_by = report(key, label, ms, nbytes, imads)
+        launches = sum(p[key] for p in paths.values())
         records.append({"name": f"{key} {label}", "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches, "max_abs_err": err,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": None})
+    # K2 at config 2's shape (config 2 is not ported yet: no launches)
+    for key, got in (("K2-rev", k2_rev), ("K2-nat", k2_nat)):
+        report(key, "[135, 8192] rate 3 (config 2's shape)", got[(135, 1 << 13, 3)][1],
+               *lde_work(135, 1 << 13, 3, k2_table_words(13, 3)))
     log("[library] none: no PyTorch call computes a Goldilocks NTT or a Poseidon "
         "permutation, so library_ms is null for every kernel")
     log(json.dumps({"kernels": records}))

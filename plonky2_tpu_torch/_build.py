@@ -41,6 +41,7 @@ _SIGNATURES = {
                             ctypes.c_uint64, _int, _vp],
     "p2t_lde_tiled_rev": [_vp] * 11 + [_i64, _int, _int, _int, _vp],
     "p2t_lde_tiled_geometry": [_int, _vp],
+    "p2t_lde_geometry": [_int, _vp],
 }
 
 

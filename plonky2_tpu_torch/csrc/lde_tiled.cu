@@ -44,9 +44,10 @@
 //   (k = 3 or 4) and runs k stages on them in registers with lazy
 //   arithmetic (goldilocks::dif_lazy: values stay any u64, canonical once
 //   at each pass's store).  A transform of 2^7..2^10 points takes two or
-//   three such groups (`group_k`); shared memory is used only between
-//   groups, so a tile has 1 (n1 or n2 <= 2^8) or 2 __syncthreads between
-//   its groups instead of one per stage.  A group reads its 2^k - 1
+//   three such groups (`group_k`; the group code, ntt_groups.cuh, is
+//   shared with K2); shared memory is used only between groups, so a
+//   tile has 1 (n1 or n2 <= 2^8) or 2 __syncthreads between its groups
+//   instead of one per stage.  A group reads its 2^k - 1
 //   twiddles once, and a group's first and last loads go straight to and
 //   from device memory where the layout allows (all but D's last store,
 //   which goes through shared memory so that rows leave coalesced).
@@ -81,6 +82,7 @@
 #include <type_traits>
 
 #include "goldilocks.cuh"
+#include "ntt_groups.cuh"
 
 namespace {
 
@@ -114,69 +116,13 @@ __device__ __forceinline__ unsigned bitrev(unsigned x, int bits) {
     return __brev(x) >> (32 - bits);
 }
 
-// K DIF stages of a transform of length 2^LOG_L on v[0 .. 2^K): v[j] is its
-// element (hi << (B + K)) | (j << B) | lo.  tw[q] = w^q (q < 2^(LOG_L - 1))
-// for the transform's root w.  The stage of half-size m = 2^(B + t) pairs
-// v[j] with v[j + 2^t] and multiplies by w_2m^(i mod m) = tw[(i mod m) <<
-// (LOG_L - 1 - B - t)], i mod m = ((j mod 2^t) << B) | lo.  With B = 0 (lo
-// = 0) the factor of j mod 2^t = 0 is 1 and is not multiplied.
-template <int LOG_L, int K, int B>
-__device__ __forceinline__ void radix(uint64_t (&v)[1 << K], const uint64_t* __restrict__ tw,
-                                      int lo) {
-#pragma unroll
-    for (int t = K - 1; t >= 0; --t) {
-#pragma unroll
-        for (int q = 0; q < (1 << t); ++q) {
-            const uint64_t w =
-                (B == 0 && q == 0) ? 1 : __ldg(&tw[((q << B) | lo) << (LOG_L - 1 - B - t)]);
-#pragma unroll
-            for (int j = q; j < (1 << K); j += 2 << t) {
-                if (B == 0 && q == 0)
-                    dif_lazy(v[j], v[j + (1 << t)]);
-                else
-                    dif_lazy(v[j], v[j + (1 << t)], w);
-            }
-        }
-    }
-}
-
-// Register group G of every transform of a tile of 2^LOG_T words, which
-// holds 2^(LOG_T - LOG_L) transforms of 2^LOG_L points.  Register group rg
-// of the tile is thread rg % THREADS's (rg / THREADS)-th, in a loop of REPS
-// trips (none when REPS = 1); it is split as
-// (transform, lo, hi) from its low bits up in a column tile (COLS:
-// consecutive threads on consecutive columns), as (lo, transform, hi) in a
-// row tile.  load(tr, i) gives element i of transform tr; store(tr, i, v)
-// takes it back.  A group that reads and writes the same shared words
-// needs no barrier of its own: each thread writes only what it read.
+// Register group G of every transform of a tile of 2^LOG_T words, in K3's
+// split (group_k) and block of THREADS threads (ntt_groups::run_group).
 template <int LOG_L, int LOG_T, int G, bool COLS, class Load, class Store>
 __device__ __forceinline__ void run_group(const uint64_t* __restrict__ tw, Load load,
                                           Store store) {
-    constexpr int K = group_k(LOG_L, G), B = group_lo(LOG_L, G);
-    constexpr int LOG_TR = LOG_T - LOG_L;
-    constexpr int REPS = (1 << (LOG_T - K)) / THREADS;
-    static_assert(REPS >= 1 && (1 << (LOG_T - K)) % THREADS == 0, "a tile must fill every thread");
-#pragma unroll 1
-    for (int q = 0; q < REPS; ++q) {
-        const int rg = threadIdx.x + q * THREADS;
-        int tr, lo, hi;
-        if (COLS) {
-            tr = rg & ((1 << LOG_TR) - 1);
-            lo = (rg >> LOG_TR) & ((1 << B) - 1);
-            hi = rg >> (LOG_TR + B);
-        } else {
-            lo = rg & ((1 << B) - 1);
-            tr = (rg >> B) & ((1 << LOG_TR) - 1);
-            hi = rg >> (B + LOG_TR);
-        }
-        const int i0 = (hi << (B + K)) | lo;
-        uint64_t v[1 << K];
-#pragma unroll
-        for (int j = 0; j < (1 << K); ++j) v[j] = load(tr, i0 | (j << B));
-        radix<LOG_L, K, B>(v, tw, lo);
-#pragma unroll
-        for (int j = 0; j < (1 << K); ++j) store(tr, i0 | (j << B), v[j]);
-    }
+    ntt_groups::run_group<LOG_L, LOG_T, group_k(LOG_L, G), group_lo(LOG_L, G), THREADS, COLS>(
+        tw, load, store);
 }
 
 // A: one (polynomial, group of C = 2^(13 - LOG_L) columns) per block; LOG_L = log n1.

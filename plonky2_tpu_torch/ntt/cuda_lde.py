@@ -9,10 +9,17 @@ send a CUDA tensor here and run the plain torch versions
 kernel takes 2 <= n <= 2^13 and 2^rate <= 64; for a CUDA tensor outside
 that range the wrapper raises (2^14 <= n <= 2^20 is the tiled kernel K3,
 `cuda_lde_tiled`).  There is no probe and no fallback.
+
+For 2^11 <= n <= 2^13 a call is two launches: the inverse transform once a
+polynomial into `coeffs`, then one block a (polynomial, coset) that reads
+the coefficients back and runs the coset's forward transform, both in
+register groups (`geometry`).  Below 2^11 it is one launch of the first
+design's body.  Either way a call adds one to its counter.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -22,8 +29,8 @@ from .. import _build
 from ..field import gl
 from .ntt import COSET_SHIFT
 
-LAUNCHES = 0                 # K2-rev launches made by `lde_from_values_rev_cuda`
-LAUNCHES_NAT = 0             # K2-nat launches made by `lde_from_values_cuda`
+LAUNCHES = 0                 # K2-rev calls that launched, `lde_from_values_rev_cuda`
+LAUNCHES_NAT = 0             # K2-nat calls that launched, `lde_from_values_cuda`
 MAX_LOG_N = 13
 MAX_RATE_BITS = 6
 
@@ -106,3 +113,12 @@ def lde_from_values_cuda(values: torch.Tensor, rate_bits: int,
     coeffs, lde, launched = _launch(values, rate_bits, shift, natural=True)
     LAUNCHES_NAT += launched
     return coeffs, lde
+
+
+def geometry(log_n: int) -> dict:
+    """The built kernel's own geometry for n = 2^log_n, 2^11 <= n <= 2^13:
+    {"threads" a block, "groups": the stages of each register group, top
+    bits first}."""
+    out = (ctypes.c_int * 5)()
+    _build.check(_build.lib().p2t_lde_geometry(log_n, out), f"K2 geometry of 2^{log_n}")
+    return {"threads": out[0], "groups": tuple(k for k in out[1:] if k)}

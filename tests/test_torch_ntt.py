@@ -185,10 +185,12 @@ def test_k3_derived_tables_equal_jax(log_n, log_n1, rate):
     assert np.array_equal(gl.from_tensor(got), want)
 
 
-# K3's register groups (csrc/lde_tiled.cu `group_k`): a transform of
-# 2^log_l points runs its stages as groups of k in registers, from the top
-# index bits down.  chip_smoke.py reads the built kernel's own split.
+# K3's register groups (csrc/lde_tiled.cu `group_k`) and K2's
+# (csrc/lde.cu `group_k`, 2^11 <= n <= 2^13): a transform of 2^log_l points
+# runs its stages as groups of k in registers, from the top index bits
+# down.  chip_smoke.py reads the built kernels' own splits.
 K3_GROUPS = {7: (4, 3), 8: (4, 4), 9: (3, 3, 3), 10: (4, 3, 3)}
+K2_GROUPS = {11: (3, 4, 4), 12: (4, 4, 4), 13: (3, 3, 3, 4)}
 
 
 def _k3_roots(log_l, sign):
@@ -197,12 +199,15 @@ def _k3_roots(log_l, sign):
     return gl.to_tensor(gl.host_powers(w if sign > 0 else gl.inv_s(w), 1 << (log_l - 1)))
 
 
-def _k3_dif_last_axis(x, tw, log_l):
-    """DIF over the last axis in K3's register groups: group (k, b) holds
-    elements (hi << (b + k)) | (j << b) | lo; its stage of half-size
-    2^(b + t) multiplies by tw[((j mod 2^t) << b | lo) << (log_l - 1 - b - t)]."""
-    shape, b = x.shape, log_l
-    for k in K3_GROUPS[log_l]:
+def _groups_dif_last_axis(x, tw, groups):
+    """DIF over the last axis (2^sum(groups) points) in register groups of
+    `groups` stages, top index bits first (csrc/ntt_groups.cuh): group (k,
+    b) holds elements (hi << (b + k)) | (j << b) | lo; its stage of
+    half-size 2^(b + t) multiplies by tw[((j mod 2^t) << b | lo) << (log_l -
+    1 - b - t)]."""
+    shape, log_l = x.shape, sum(groups)
+    b = log_l
+    for k in groups:
         b -= k
         lo = torch.arange(1 << b)
         for t in range(k - 1, -1, -1):
@@ -224,12 +229,12 @@ def _k3_pass_model(vals, rate):
     n1, n2 = 1 << l1, 1 << l2
 
     def cols(x, log_l, sign):
-        return _k3_dif_last_axis(x.transpose(-1, -2), _k3_roots(log_l, sign),
-                                 log_l).transpose(-1, -2)
+        return _groups_dif_last_axis(x.transpose(-1, -2), _k3_roots(log_l, sign),
+                                     K3_GROUPS[log_l]).transpose(-1, -2)
 
     x = cols(gl.to_tensor(vals).reshape(b, n1, n2), l1, -1)
-    x = _k3_dif_last_axis(gl.mul(x, cuda_lde_tiled.inverse_twiddle(log_n, l1)),
-                          _k3_roots(l2, -1), l2)
+    x = _groups_dif_last_axis(gl.mul(x, cuda_lde_tiled.inverse_twiddle(log_n, l1)),
+                              _k3_roots(l2, -1), K3_GROUPS[l2])
     nat = torch.from_numpy(_bitrev_perm(l1)[:, None] + n1 * _bitrev_perm(l2)[None, :])
     coeffs = torch.empty((b, n), dtype=gl.DTYPE)
     coeffs[:, nat.reshape(-1)] = x.reshape(b, n)
@@ -238,8 +243,8 @@ def _k3_pass_model(vals, rate):
     blocks = []
     for kk in range(1 << rate):
         y = cols(gl.mul(coeffs.reshape(b, n1, n2), gl.to_tensor(u[kk])[:, None]), l1, +1)
-        blocks.append(_k3_dif_last_axis(gl.mul(y, coset_tw[kk]), _k3_roots(l2, +1),
-                                        l2).reshape(b, n))
+        blocks.append(_groups_dif_last_axis(gl.mul(y, coset_tw[kk]), _k3_roots(l2, +1),
+                                            K3_GROUPS[l2]).reshape(b, n))
     return coeffs, torch.cat(blocks, dim=1)
 
 
@@ -252,12 +257,50 @@ def test_k3_pass_model_equals_jax(rows, log_n, rate):
     assert _pair(cg, cw) and _pair(lg, lw)
 
 
-# every split of the kernel, the three-group ones (2^9: 3+3+3, 2^10: 4+3+3)
-# included, which the pass model's sizes do not reach; against the port's
-# plain DIF (held against JAX's in test_transforms_equal_jax)
-@pytest.mark.parametrize("log_l", sorted(K3_GROUPS))
-def test_k3_register_groups_equal_plain_dif(log_l):
+# every split of K3, the three-group ones (2^9: 3+3+3, 2^10: 4+3+3)
+# included, which the pass model's sizes do not reach, and every split of
+# K2 (ids k2-<log n>); against the port's plain DIF (held against JAX's in
+# test_transforms_equal_jax)
+@pytest.mark.parametrize("groups", [pytest.param(g, id=str(log_l))
+                                    for log_l, g in sorted(K3_GROUPS.items())]
+                         + [pytest.param(g, id=f"k2-{log_n}")
+                            for log_n, g in sorted(K2_GROUPS.items())])
+def test_k3_register_groups_equal_plain_dif(groups):
+    log_l = sum(groups)
     x = gl.to_tensor(rand_u64(3, 1 << log_l))
     for sign in (+1, -1):
-        got = _k3_dif_last_axis(x, _k3_roots(log_l, sign), log_l)
+        got = _groups_dif_last_axis(x, _k3_roots(log_l, sign), groups)
         assert torch.equal(got, ntt.ntt_to_rev(x, inverse=sign < 0))
+
+
+def _k2_model(vals, rate):
+    """K2's two launches for 2^11 <= n <= 2^13 in torch, from the kernel's
+    own host tables (`cuda_lde._tables`): the inverse DIF in register
+    groups, times 1/n into natural-order coefficients; then for each coset
+    k the scale (shift * w_N^k)^j at the load, the forward DIF in the same
+    groups, and the block placed at rev_rate(k) (K2-rev) or interleaved at
+    k + 2^rate * i in natural order (K2-nat)."""
+    b, n = vals.shape
+    log_n = n.bit_length() - 1
+    groups = K2_GROUPS[log_n]
+    tw_inv, tw_fwd, pows = cuda_lde._tables(log_n, rate, ntt.COSET_SHIFT % gl.P, "cpu")
+    x = _groups_dif_last_axis(gl.to_tensor(vals), tw_inv, groups)   # x[r] = n * c[rev(r)]
+    rev_n = torch.from_numpy(_bitrev_perm(log_n))
+    coeffs = gl.mul(x, gl.full((), gl.inv_s(n), "cpu"))[:, rev_n]
+    rev_blocks, nat = [None] * (1 << rate), torch.empty((b, n << rate), dtype=gl.DTYPE)
+    for k in range(1 << rate):
+        y = _groups_dif_last_axis(gl.mul(coeffs, pows[k]), tw_fwd, groups)
+        rev_blocks[int(_bitrev_perm(rate)[k])] = y
+        nat[:, k::1 << rate] = y[:, rev_n]
+    return coeffs, torch.cat(rev_blocks, dim=1), nat
+
+
+@pytest.mark.parametrize("rows,log_n,rate", [(2, 12, 3), (1, 13, 2)])
+def test_k2_launch_model_equals_jax(rows, log_n, rate):
+    vals = rand_u64(rows, 1 << log_n)
+    cg, lg, ng = _k2_model(vals, rate)
+    cw, lw = jntt.lde_from_values_rev_jit(jnp.asarray(vals), rate_bits=rate)
+    assert _pair(cg, cw) and _pair(lg, lw)
+    # K2-nat's order, against the plain natural LDE (held against JAX's in
+    # test_lde_natural_equals_jax_and_pallas_interpret)
+    assert torch.equal(ng, ntt.lde_from_values(gl.to_tensor(vals), rate)[1])
