@@ -1,10 +1,12 @@
 """Smoke run of the PyTorch/CUDA port (`plonky2_tpu_torch`) on one GPU.
 
-Drives the port's two main paths — build, witness, prove and serialize the
-config-1 circuit (Poseidon chain, 2^12 rows) and the config-3 circuit (51
-chained depth-32 SMT process proofs, 2^14 rows), both under
+Drives the port's three main paths — build, witness, prove and serialize
+the config-1 circuit (Poseidon chain, 2^12 rows), the config-2 circuit (u32
+mul/add/xor/sub/compare, 2^13 rows) and the config-3 circuit (51 chained
+depth-32 SMT process proofs, 2^14 rows), all under
 standard_recursion_config — on the card, after checking each hand-written
-kernel against its plain torch version there:
+kernel against its plain torch version there, and verifies every proof
+with the port's host verifier:
 
   1. device      name, power limit, SM clock; fails without CUDA
   2. build       nvcc builds plonky2_tpu_torch/csrc/*.cu, one process per
@@ -29,7 +31,13 @@ kernel against its plain torch version there:
                  2^17 (n1 != n2), one polynomial, and rates 0, 1 and 6
   7. tiny        the golden tiny circuit's proof sha256
   8. config 1    proof bytes equal the JAX package's (tests/torch_port_vectors.json)
-  9. config 3    the same, proved twice
+  9. config 2    the same, proved twice
+ 10. config 3    the same, proved twice
+
+Every proof phase (7-10) ends with a verify step: the port's verifier
+accepts the card's proof and rejects it with one public input or one
+opening changed, and the verifier key's bytes have the fixture's sha256
+and read back to the same bytes.
 
 All checks are exact: field arithmetic has no rounding, so every tolerance
 is 0.  Kernel inputs cover all of [0, p), edge values included.  Kernel
@@ -501,27 +509,73 @@ def phase_tiny(device):
     for t in b.two_to_one([x, y, z, x], [y, z, x, y]):
         b.register_public_input(t)
     data = b.build(device=device)
-    raw = serialize_proof(data.prove({x: 111, y: 222}))
+    proof = data.prove({x: 111, y: 222})
+    raw = serialize_proof(proof)
     digest = hashlib.sha256(raw).hexdigest()
     if digest != golden["tiny_circuit_proof_sha256"]:
         raise AssertionError(f"tiny circuit proof sha256 {digest} != golden "
                              f"{golden['tiny_circuit_proof_sha256']}")
     log(f"[tiny] golden tiny circuit: {len(raw)} bytes, sha256 {digest} (golden)")
+    verify_step("tiny", data, proof, fixture("tiny"))
+
+
+def fixture(key: str) -> dict:
+    with open(os.path.join(ROOT, "tests", "torch_port_vectors.json")) as f:
+        return json.load(f)[key]
+
+
+def verify_step(tag: str, data, proof, want: dict) -> None:
+    """The port's verifier on the card's proof: it accepts it (the wall is
+    printed) and rejects it with a public input or an opening changed; the
+    verifier key has the fixture's sha256 and round-trips."""
+    import copy
+    from plonky2_tpu_torch.field import gl
+    from plonky2_tpu_torch.serialization import (deserialize_verifier_data,
+                                                 serialize_verifier_data)
+    t0 = time.perf_counter()
+    data.verify(proof)
+    verify_s = time.perf_counter() - t0
+
+    def bump_public_input(p):
+        p.public_inputs[0] = (p.public_inputs[0] + 1) % gl.P
+
+    def bump_opening(p):
+        c0, c1 = p.openings.wires[0]
+        p.openings.wires[0] = ((c0 + 1) % gl.P, c1)
+
+    for what, tamper in (("a public input", bump_public_input),
+                         ("an opening", bump_opening)):
+        bad = copy.deepcopy(proof)
+        tamper(bad)
+        try:
+            data.verify(bad)
+        except ValueError as e:
+            log(f"[{tag}] proof with {what} changed: rejected ({e})")
+            continue
+        raise AssertionError(f"{tag}: the verifier accepted a proof with {what} changed")
+    vk = serialize_verifier_data(data.verifier)
+    digest = hashlib.sha256(vk).hexdigest()
+    if digest != want["verifier_data_sha256"]:
+        raise AssertionError(f"{tag} verifier key sha256 {digest} != fixture "
+                             f"{want['verifier_data_sha256']}")
+    if serialize_verifier_data(deserialize_verifier_data(vk)) != vk:
+        raise AssertionError(f"{tag} verifier key does not round-trip")
+    log(f"[{tag}] verify {verify_s:.3f} s (host): accepted; verifier key {len(vk)} bytes, "
+        f"sha256 {digest} equals the fixture and round-trips")
 
 
 def phase_config(tag: str, device, build, fixture_key: str, proves: int = 2):
     """Build, witness and prove one configuration on the card; its proof
     bytes, cs_cap, public inputs and shape must equal the JAX fixture, and
-    every prove must give the same bytes.  -> kernel launches on the path
-    (build + first prove)."""
+    every prove must give the same bytes; then the verify step.  -> kernel
+    launches on the path (build + first prove)."""
     import torch
     from plonky2_tpu_torch import utils
     from plonky2_tpu_torch.hashes import cuda_poseidon
     from plonky2_tpu_torch.ntt import cuda_lde, cuda_lde_tiled
     from plonky2_tpu_torch.prove.prover import witness_matrix
     from plonky2_tpu_torch.serialization import serialize_proof
-    with open(os.path.join(ROOT, "tests", "torch_port_vectors.json")) as f:
-        want = json.load(f)[fixture_key]
+    want = fixture(fixture_key)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -581,6 +635,7 @@ def phase_config(tag: str, device, build, fixture_key: str, proves: int = 2):
         log(f"[{tag}] phase spans, prove {i + 1} (synchronized):")
         for line in lines:
             log("  " + line)
+    verify_step(tag, data, proof, want)
     return launches
 
 
@@ -596,36 +651,45 @@ def main() -> int:
     k3 = phase_k3(device)
     phase_tiny(device)
 
-    from plonky2_tpu_torch.bench import build_poseidon_chain, build_smt_process
+    from plonky2_tpu_torch.bench import (build_poseidon_chain, build_smt_process,
+                                         build_u32_mix)
     paths = {
         "config1": phase_config("config1", device, lambda: build_poseidon_chain(12),
                                 "config1"),
+        "config2": phase_config("config2", device, lambda: build_u32_mix(13),
+                                "config2"),
         "config3": phase_config("config3", device, lambda: build_smt_process(14),
                                 "config3"),
     }
-    required = {"config1": ("K1", "K2-rev"), "config3": ("K1", "K3")}
+    required = {"config1": ("K1", "K2-rev"), "config2": ("K1", "K2-rev"),
+                "config3": ("K1", "K3")}
     for path, kernels in required.items():
         for k in kernels:
             if paths[path][k] <= 0:
                 raise AssertionError(f"kernel {k} was not launched on the {path} path")
 
     # Each kernel at the shape its main path gives it; launches summed over
-    # the paths' runs.  The LDE kernels' bytes include the twiddle tables
-    # as the JAX kernels derive them (k2_table_words, k3_table_words),
-    # whatever tables K2 and K3 themselves read.
+    # the paths named (all paths where None).  The LDE kernels' bytes
+    # include the twiddle tables as the JAX kernels derive them
+    # (k2_table_words, k3_table_words), whatever tables K2 and K3 read.
     rows = [
         ("K1", "poseidon permute_cols [12, 131072] (config 3 leaf hashing)",
          "plonky2_tpu_torch/csrc/poseidon.cu", "plonky2_tpu/hashes/pallas_poseidon.py:191",
-         k1[1 << 17], poseidon_work(1 << 17)),
+         k1[1 << 17], poseidon_work(1 << 17), None),
         ("K2-rev", "lde_from_values_rev [135, 4096] rate 3 (config 1 wires)",
          "plonky2_tpu_torch/csrc/lde.cu", "plonky2_tpu/ntt/pallas_lde.py:316",
-         k2_rev[(135, 4096, 3)], lde_work(135, 4096, 3, k2_table_words(12, 3))),
+         k2_rev[(135, 4096, 3)], lde_work(135, 4096, 3, k2_table_words(12, 3)),
+         ("config1",)),
+        ("K2-rev", "lde_from_values_rev [135, 8192] rate 3 (config 2 wires)",
+         "plonky2_tpu_torch/csrc/lde.cu", "plonky2_tpu/ntt/pallas_lde.py:316",
+         k2_rev[(135, 1 << 13, 3)], lde_work(135, 1 << 13, 3, k2_table_words(13, 3)),
+         ("config2",)),
         ("K2-nat", "lde_from_values [135, 4096] rate 3 (on no prove path)",
          "plonky2_tpu_torch/csrc/lde.cu", "plonky2_tpu/ntt/pallas_lde.py:303",
-         k2_nat[(135, 4096, 3)], lde_work(135, 4096, 3, k2_table_words(12, 3))),
+         k2_nat[(135, 4096, 3)], lde_work(135, 4096, 3, k2_table_words(12, 3)), None),
         ("K3", "lde_from_values_tiled_rev [135, 16384] rate 3 (config 3 wires)",
          "plonky2_tpu_torch/csrc/lde_tiled.cu", "plonky2_tpu/ntt/pallas_lde_tiled.py:338",
-         k3[(135, 1 << 14, 3)], lde_work(135, 1 << 14, 3, k3_table_words(14, 3))),
+         k3[(135, 1 << 14, 3)], lde_work(135, 1 << 14, 3, k3_table_words(14, 3)), None),
     ]
     def report(key, label, ms, nbytes, imads):
         bound_ms, bound_by = bound(nbytes, imads, sm_hz)
@@ -635,17 +699,16 @@ def main() -> int:
         return bound_ms, bound_by
 
     records = []
-    for key, label, source, replaces, (err, ms, plain_ms), (nbytes, imads) in rows:
+    for key, label, source, replaces, (err, ms, plain_ms), (nbytes, imads), on in rows:
         bound_ms, bound_by = report(key, label, ms, nbytes, imads)
-        launches = sum(p[key] for p in paths.values())
+        launches = sum(p[key] for name, p in paths.items() if on is None or name in on)
         records.append({"name": f"{key} {label}", "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches, "max_abs_err": err,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": None})
-    # K2 at config 2's shape (config 2 is not ported yet: no launches)
-    for key, got in (("K2-rev", k2_rev), ("K2-nat", k2_nat)):
-        report(key, "[135, 8192] rate 3 (config 2's shape)", got[(135, 1 << 13, 3)][1],
-               *lde_work(135, 1 << 13, 3, k2_table_words(13, 3)))
+    # K2-nat at config 2's shape (on no prove path)
+    report("K2-nat", "[135, 8192] rate 3 (config 2's shape)", k2_nat[(135, 1 << 13, 3)][1],
+           *lde_work(135, 1 << 13, 3, k2_table_words(13, 3)))
     log("[library] none: no PyTorch call computes a Goldilocks NTT or a Poseidon "
         "permutation, so library_ms is null for every kernel")
     log(json.dumps({"kernels": records}))

@@ -2,7 +2,8 @@
 PyTorch and CUDA for an NVIDIA H100.
 
 The JAX package `plonky2_tpu` is the reference: for the same circuit and
-inputs this package produces the same `serialize_proof` bytes.  It imports
+inputs this package produces the same `serialize_proof` bytes, and each
+package verifies the other's proofs.  It imports
 torch and numpy, never JAX, and nothing of `plonky2_tpu`.
 
 Field tensors are `torch.int64` holding the u64 bit pattern of a canonical
@@ -29,15 +30,17 @@ Layout (mirrors plonky2_tpu/):
     ntt/        NTT / coset LDE (plain tensor, kernels K2 and K3)
     merkle/     cap-rooted Merkle trees
     transcript/ Fiat-Shamir challenger
-    fri/        FRI prover
+    fri/        FRI prover and host verifier
     ir/         CircuitBuilder, config
-    gates/      arithmetic, constant, public-input, noop, Poseidon, base-sum gates
+    gates/      arithmetic, constant, public-input, noop, Poseidon, base-sum,
+                u32 arithmetic / add-many / range-check / subtraction,
+                comparison and interleave gates
     witness/    witness-generation scheduler
     smt/        native sparse Merkle tree (witnesses of the SMT circuits)
-    gadgets/    SMT inclusion / process-proof circuits
-    prove/      compile + prover
-    serialization/  serialize_proof
-    bench/      config-1 and config-3 circuits; device profile of a prove
+    gadgets/    SMT inclusion / process-proof circuits, u32 / B32 gadgets
+    prove/      compile, prover and verifier (host)
+    serialization/  proof and verifier-key bytes, both ways
+    bench/      config-1, -2 and -3 circuits; device profile of a prove
     convert.py  numpy <-> tensor bridges to the JAX package's arrays
 """
 

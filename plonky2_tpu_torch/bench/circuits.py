@@ -1,9 +1,10 @@
-"""Self-sizing benchmark circuits (configs 1 and 3 of BASELINE.md).
+"""Self-sizing benchmark circuits (configs 1, 2 and 3 of BASELINE.md).
 
-Counterpart of `build_poseidon_chain` and `build_smt_process` in
-`plonky2_tpu/bench/circuits.py`: each circuit repeats its unit until
-`num_gates()` reaches the target; the compiler pads to the next power of
-two.  Configs 2, 4 and 5 need gates and gadgets that are not ported yet.
+Counterpart of `build_poseidon_chain`, `build_u32_mix` and
+`build_smt_process` in `plonky2_tpu/bench/circuits.py`: each circuit
+repeats its unit until `num_gates()` reaches the target; the compiler pads
+to the next power of two.  Configs 4 and 5 need gates and gadgets that are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -47,6 +48,31 @@ def build_poseidon_chain(degree_bits: int = 12, config: CircuitConfig | None = N
         b.register_public_input(t)
     inputs = {xs[i]: i + 1 for i in range(4)}
     return b, inputs, {"name": "poseidon_chain", "degree_bits": degree_bits}
+
+
+def build_u32_mix(degree_bits: int = 13, config: CircuitConfig | None = None):
+    """Config 2: u32 mul/add/xor/sub/compare with range checks, sized to
+    degree 2^degree_bits, under `standard_recursion_config` unless `config`
+    says otherwise; inputs from the JAX package's seed.  Returns (builder,
+    inputs, meta)."""
+    from .. import gadgets  # noqa: F401  (attaches the u32 builder API)
+
+    rng = random.Random(0x32BE7C4)
+    b = CircuitBuilder(config or CircuitConfig.standard_recursion_config())
+    x = b.add_virtual_u32_target()
+    y = b.add_virtual_u32_target()
+    acc = x
+    target = _target_rows(degree_bits, 16)
+    while b.num_gates() < target:
+        lo, hi = b.mul_u32(acc, y)
+        s, _carry = b.add_u32(lo, hi)
+        xor = b.xor_u32(s, acc)
+        d, _borrow = b.sub_u32(xor, y, b.zero_u32())
+        _lt = b.is_less_than_u32(d, y)
+        acc = d
+    b.register_public_input(acc.target)
+    inputs = {x.target: rng.randrange(1 << 32), y.target: rng.randrange(1 << 32)}
+    return b, inputs, {"name": "u32_mix", "degree_bits": degree_bits}
 
 
 def build_smt_process(degree_bits: int = 14, n_levels: int = 32,

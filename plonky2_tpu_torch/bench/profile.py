@@ -1,7 +1,7 @@
 """Device profile of one warm prove on the card, with `torch.profiler`.
 
-Builds config 1 (`build_poseidon_chain(12)`) or config 3
-(`build_smt_process(14)`) on the card, proves once to warm up, then
+Builds config 1 (`build_poseidon_chain(12)`), config 2 (`build_u32_mix(13)`)
+or config 3 (`build_smt_process(14)`) on the card, proves once to warm up, then
 profiles one more prove (CPU and CUDA activities) and prints: the prove's
 wall time, the number of device operations, the device's busy time (the
 union of the device operations' intervals) and its share of the wall, the
@@ -40,9 +40,9 @@ def _busy_us(intervals) -> float:
 
 def main() -> int:
     from ..prove.prover import witness_matrix
-    from . import build_poseidon_chain, build_smt_process
+    from . import build_poseidon_chain, build_smt_process, build_u32_mix
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--config", type=int, choices=(1, 3), default=3)
+    parser.add_argument("--config", type=int, choices=(1, 2, 3), default=3)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("CUDA is not available: the profile needs a GPU")
@@ -51,7 +51,8 @@ def main() -> int:
                          timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0])
 
-    build = {1: lambda: build_poseidon_chain(12), 3: lambda: build_smt_process(14)}
+    build = {1: lambda: build_poseidon_chain(12), 2: lambda: build_u32_mix(13),
+             3: lambda: build_smt_process(14)}
     b, inputs, meta = build[args.config]()
     data = b.build(device="cuda")
     data.prove(inputs)

@@ -23,6 +23,10 @@ ONE = (1, 0)
 # Scalar ops (tuples of Python ints)
 # ------------------------------------------------------------------
 
+def from_base_s(a: int):
+    return (a, 0)
+
+
 def add_s(a, b):
     return (gl.add_s(a[0], b[0]), gl.add_s(a[1], b[1]))
 
@@ -67,6 +71,10 @@ def pow_s(a, e: int):
         e >>= 1
         base = mul_s(base, base)
     return result
+
+
+def eq_s(a, b) -> bool:
+    return a[0] == b[0] and a[1] == b[1]
 
 
 # ------------------------------------------------------------------

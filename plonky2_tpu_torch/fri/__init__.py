@@ -1,1 +1,1 @@
-from .fri import FriConfig, FriProof, fri_prove, grind  # noqa: F401
+from .fri import FriConfig, FriProof, fri_prove, fri_verify, grind  # noqa: F401

@@ -1,11 +1,13 @@
-"""FRI low-degree commitment, prover half, on torch tensors.
+"""FRI low-degree commitment on torch tensors, and its host verifier.
 
-Counterpart of `plonky2_tpu/fri/fri.py:42-271` (the verifier half is not
-ported yet).  Commit phase: Merkle-commit the current layer's folding
-cosets, draw beta, fold by arity 2^a (a batched size-a iNTT of every coset
-plus a Horner evaluation at beta/x_j).  Then the final polynomial in the
-clear, the proof-of-work grind (one batched Poseidon permutation per chunk
-of candidate witnesses — kernel K1 on the card), and the query openings.
+Counterpart of `plonky2_tpu/fri/fri.py`.  Commit phase: Merkle-commit
+the current layer's folding cosets, draw beta, fold by arity 2^a (a
+batched size-a iNTT of every coset plus a Horner evaluation at beta/x_j).
+Then the final polynomial in the clear, the proof-of-work grind (one
+batched Poseidon permutation per chunk of candidate witnesses — kernel K1
+on the card), and the query openings.
+`fri_verify` replays the transcript and checks each query on the host, in
+Python ints; it touches no device.
 
 Layout (plonky2's): every LDE is stored in BIT-REVERSED domain order —
 index r holds the value at shift * w^rev(r) — so an arity-2^a folding
@@ -22,7 +24,7 @@ import torch
 
 from ..field import ext, gl
 from ..hashes import poseidon
-from ..merkle import MerkleTree
+from ..merkle import MerkleTree, verify_merkle_proof_s
 from ..ntt.ntt import _bitrev_perm, host_powers, intt, intt_from_rev
 from ..transcript import Challenger
 from ..utils.device import DEFAULT_DEVICE, resolve_device
@@ -239,3 +241,109 @@ def fri_prove(values, degree_bits: int, config: FriConfig,
         pow_witness=pow_witness,
         query_indices=query_indices,
     )
+
+
+# ------------------------------------------------------------------
+# Verifier (host scalar)
+# ------------------------------------------------------------------
+
+def require(ok: bool, what: str) -> None:
+    """The verifier's check: a failed one rejects the proof."""
+    if not ok:
+        raise ValueError(f"invalid proof: {what}")
+
+
+def rev_bits(i: int, bits: int) -> int:
+    """Bit reversal of one index: entry i of `_bitrev_perm(bits)`."""
+    return int(format(i, f"0{bits}b")[::-1], 2) if bits else 0
+
+
+def _interpolate_coset_s(points, values, beta):
+    """Lagrange-interpolate {(points[k] base, values[k] ext)} and evaluate at
+    beta (ext).  O(a^2), verifier-sized."""
+    a = len(points)
+    acc = ext.ZERO
+    for k in range(a):
+        num = ext.ONE
+        den = 1
+        for m in range(a):
+            if m == k:
+                continue
+            num = ext.mul_s(num, ext.sub_s(beta, ext.from_base_s(points[m])))
+            den = gl.mul_s(den, gl.sub_s(points[k], points[m]))
+        term = ext.mul_s(values[k], ext.scalar_mul_s(num, gl.inv_s(den)))
+        acc = ext.add_s(acc, term)
+    return acc
+
+
+def fri_verify(proof: FriProof, degree_bits: int, config: FriConfig,
+               challenger: Challenger, shift: int,
+               initial_caps: list, combine_fn) -> None:
+    """Raises ValueError on any failed check.
+
+    combine_fn(index, initial_leaf_values: list[list[int]]) -> ext tuple:
+    recomputes the composite value at BIT-REVERSED domain index `index`
+    (the point is shift * w^rev(index)) from the opened initial-oracle
+    leaves."""
+    N = 1 << (degree_bits + config.rate_bits)
+    arities = config.reduction_arity_bits(degree_bits)
+    require(len(proof.commit_caps) == len(arities), "FRI layer count")
+
+    betas = []
+    for cap in proof.commit_caps:
+        challenger.observe_cap(cap)
+        betas.append(challenger.get_ext_challenge())
+    final_len = 1 << (degree_bits - sum(arities))
+    require(len(proof.final_poly) == final_len, "final polynomial length")
+    for c in proof.final_poly:
+        challenger.observe_ext(c)
+
+    challenger.observe_element(proof.pow_witness)
+    response = challenger.get_challenge()
+    require(response < (1 << (64 - config.proof_of_work_bits)), "PoW check")
+
+    query_indices = [challenger.get_challenge() % N
+                     for _ in range(config.num_query_rounds)]
+    require(len(proof.query_rounds) == len(query_indices), "query count")
+
+    for idx, qr in zip(query_indices, proof.query_rounds):
+        require(len(qr.initial) == len(initial_caps), "initial oracle count")
+        for opening, cap in zip(qr.initial, initial_caps):
+            require(verify_merkle_proof_s(opening.leaf_values, idx, cap,
+                                          opening.siblings),
+                    "initial Merkle proof")
+        old_eval = combine_fn(idx, [o.leaf_values for o in qr.initial])
+
+        cur_N, cur_i, cur_shift = N, idx, shift
+        for (ab, beta, step, cap) in zip(arities, betas, qr.steps,
+                                         proof.commit_caps):
+            a = 1 << ab
+            rows = cur_N // a
+            j = cur_i >> ab              # contiguous block: high bits
+            pos = cur_i & (a - 1)        # slot within block (rev_a order)
+            require(len(step.evals) == a
+                    and tuple(step.evals[pos]) == tuple(old_eval),
+                    "fold consistency")
+            leaf = [x for e in step.evals for x in e]
+            require(verify_merkle_proof_s(leaf, j, cap, step.siblings),
+                    "layer Merkle proof")
+            # block slot m holds the value at x_j * w_a^{rev_a(m)},
+            # x_j = shift * w_N^{rev_rows(j)}
+            w_N = gl.primitive_root_of_unity(cur_N.bit_length() - 1)
+            x_j = gl.mul_s(cur_shift, pow(w_N, rev_bits(j, rows.bit_length() - 1),
+                                          gl.P))
+            w_a = gl.primitive_root_of_unity(ab)
+            pts = [gl.mul_s(x_j, pow(w_a, rev_bits(m, ab), gl.P))
+                   for m in range(a)]
+            vals = [tuple(e) for e in step.evals]
+            old_eval = _interpolate_coset_s(pts, vals, beta)
+            cur_N, cur_i, cur_shift = rows, j, pow(cur_shift, a, gl.P)
+
+        # Final polynomial check at the surviving point.
+        bits_f = cur_N.bit_length() - 1
+        w_f = gl.primitive_root_of_unity(bits_f)
+        x = gl.mul_s(cur_shift, pow(w_f, rev_bits(cur_i, bits_f), gl.P))
+        acc = ext.ZERO
+        for c in reversed(proof.final_poly):
+            acc = ext.add_s(ext.mul_s(acc, ext.from_base_s(x)), tuple(c))
+        require(tuple(acc) == tuple(old_eval), "final polynomial check")

@@ -1,6 +1,6 @@
 """Gadgets: in-circuit building blocks over `ir.CircuitBuilder`.
 
-Host copy of `plonky2_tpu/gadgets/`; only the SMT gadgets are ported.
+Host copy of `plonky2_tpu/gadgets/`; the SMT and u32 gadgets are ported.
 """
 
-from . import smt  # noqa: F401
+from . import smt, u32  # noqa: F401

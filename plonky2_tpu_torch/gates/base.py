@@ -3,15 +3,15 @@ algebra.
 
 Counterpart of `plonky2_tpu/gates/base.py`.  `Gate.eval(vars, alg)` is
 written against a generic algebra; `BatchAlg` evaluates it on int64
-tensors over a domain chunk (the prover's quotient).  The verifier's
-GF(p^2) scalar algebra comes with the verifier.  Gate instances sit one
-per row; constraints are multiplied by the selector-derived filter outside
-the gate.
+tensors over a domain chunk (the prover's quotient), `ExtAlg` on GF(p^2)
+scalars (the verifier's check at zeta).  Gate instances sit one per row;
+constraints are multiplied by the selector-derived filter outside the
+gate.
 """
 
 from __future__ import annotations
 
-from ..field import gl
+from ..field import ext, gl
 
 
 class BatchAlg:
@@ -46,6 +46,36 @@ class BatchAlg:
     @property
     def one(self):
         return self.constant(1)
+
+
+class ExtAlg:
+    """Extension-scalar algebra: values are (c0, c1) Python-int tuples."""
+
+    def constant(self, c: int):
+        return ext.from_base_s(c)
+
+    def add(self, a, b):
+        return ext.add_s(a, b)
+
+    def sub(self, a, b):
+        return ext.sub_s(a, b)
+
+    def mul(self, a, b):
+        return ext.mul_s(a, b)
+
+    def mul_const(self, c: int, a):
+        return ext.scalar_mul_s(a, c)
+
+    def add_const(self, a, c: int):
+        return ext.add_s(a, ext.from_base_s(c))
+
+    @property
+    def zero(self):
+        return ext.ZERO
+
+    @property
+    def one(self):
+        return ext.ONE
 
 
 class EvalVars:

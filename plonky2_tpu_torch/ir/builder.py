@@ -7,10 +7,11 @@ one union-find.  `build(device=...)` lowers everything to tensors
 oracle) on that device, the card unless the caller asks for the CPU, plus
 host tables for witness routing.
 
-The port carries the arithmetic, constant, public-input, noop, Poseidon
-and base-sum gates.  Builder methods that place any other gate (random
-access, exponentiation, comparison, the extension-field gates, coset
-interpolation, lookups) raise NotImplementedError naming the gate.
+The port carries the arithmetic, constant, public-input, noop, Poseidon,
+base-sum, comparison and u32 gates (the u32 builder methods come from
+`gadgets/u32.py`).  Builder methods that place any other gate (random
+access, exponentiation, the extension-field gates, coset interpolation,
+lookups) raise NotImplementedError naming the gate.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ from __future__ import annotations
 from collections import namedtuple
 
 from ..field import gl
-from ..gates import ArithmeticGate, BaseSumGate, ConstantGate, PoseidonGate
+from ..gates import (ArithmeticGate, BaseSumGate, ComparisonGate, ConstantGate,
+                     PoseidonGate)
 from ..hashes import poseidon
 from ..utils.device import DEFAULT_DEVICE
 from ..witness import NamedGenerator
@@ -228,6 +230,17 @@ class CircuitBuilder:
             limbs.append(t)
         return limbs
 
+    def le_compare(self, a, b, num_bits: int = 32):
+        """Boolean target (a <= b) through one ComparisonGate; the caller
+        guarantees a, b < 2^num_bits."""
+        gate = ComparisonGate(num_bits)
+        row = self.add_gate(gate, [])
+        self.connect(a, Wire(row, gate.WIRE_A))
+        self.connect(b, Wire(row, gate.WIRE_B))
+        out = self.add_virtual_target()
+        self.connect(out, Wire(row, gate.WIRE_RESULT))
+        return out
+
     # ---------------- gates not ported yet ----------------
 
     def random_access(self, index, items: list):
@@ -238,9 +251,6 @@ class CircuitBuilder:
 
     def exp_u64(self, base, exponent, num_bits: int = 64):
         _not_ported("ExponentiationGate")
-
-    def le_compare(self, a, b, num_bits: int = 32):
-        _not_ported("ComparisonGate")
 
     def arithmetic_extension(self, c0: int, c1: int, m0, m1, addend):
         _not_ported("ArithmeticExtensionGate")

@@ -1,8 +1,9 @@
 """Circuit configuration presets.
 
 Host copy of `plonky2_tpu/ir/config.py` (plonky2's `CircuitConfig`
-presets).  The port hashes with Poseidon only, so the JAX config's hasher
-fields and the presets that select another hasher (keccak, poseidon2) or
+presets).  The port hashes with Poseidon only, so the JAX config's two
+hasher fields are the one constant `HASHER` (the verifier key writes it for
+both), and the presets that select another hasher (keccak, poseidon2) or
 serve gadgets not ported yet (the ECC presets) are left out.
 """
 
@@ -12,6 +13,9 @@ from dataclasses import dataclass, field
 
 from ..fri import FriConfig
 
+# The in-circuit and the transcript hasher of every port circuit.
+HASHER = "poseidon"
+
 
 @dataclass(frozen=True)
 class CircuitConfig:
@@ -19,6 +23,7 @@ class CircuitConfig:
     num_routed_wires: int = 80
     num_constants: int = 2
     num_challenges: int = 2
+    security_bits: int = 100
     # max degree of a filtered constraint; the quotient splits into this
     # many degree-n chunks
     max_quotient_degree_factor: int = 8

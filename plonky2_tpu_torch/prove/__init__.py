@@ -1,2 +1,3 @@
 from .compile import CircuitData, compile_circuit  # noqa: F401
 from .prover import prove  # noqa: F401
+from .verifier import verify  # noqa: F401

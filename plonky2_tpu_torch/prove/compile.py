@@ -90,6 +90,11 @@ class CircuitData:
         from .prover import prove
         return prove(self.prover, inputs)
 
+    def verify(self, proof) -> None:
+        """Raises ValueError if `proof` does not verify (host only)."""
+        from .verifier import verify
+        return verify(self.verifier, proof)
+
 
 def _selector_groups(gates, max_degree_factor: int) -> SelectorInfo:
     """Greedy grouping: filtered degree = gate_deg + group_size (+1 for the

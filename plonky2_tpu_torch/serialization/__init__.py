@@ -1,2 +1,3 @@
 from .buffer import Buffer  # noqa: F401
-from .serde import serialize_proof  # noqa: F401
+from .serde import (deserialize_proof, deserialize_verifier_data,  # noqa: F401
+                    gate_from_key, serialize_proof, serialize_verifier_data)

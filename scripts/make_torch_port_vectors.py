@@ -1,9 +1,11 @@
 """Write tests/torch_port_vectors.json: the JAX package's proof digests
 that the PyTorch port (`plonky2_tpu_torch`) must reproduce byte for byte.
 
-Four circuits, built, proved and verified with the JAX package on the
+Seven circuits, built, proved and verified with the JAX package on the
 CPU:
 
+* `tiny`: the golden tiny circuit of tests/test_golden_vectors.py (its
+  proof digest is also in tests/golden_vectors.json);
 * `config1`: `bench.circuits.build_poseidon_chain(12)` under
   `standard_recursion_config` (degree 2^12, 135 wires, FRI arity 16,
   28 queries, 16-bit PoW);
@@ -13,14 +15,25 @@ CPU:
   `standard_recursion_config` (51 chained depth-32 SMT process proofs,
   16,315 gates, degree 2^14);
 * `small_smt`: the same SMT circuit under `test_config` at depth 4, sized
-  to 2^7 rows (2 chained proofs; the CPU test in tests/test_torch_smt.py).
+  to 2^7 rows (2 chained proofs; the CPU test in tests/test_torch_smt.py);
+* `config2`: `bench.circuits.build_u32_mix(13)` under
+  `standard_recursion_config` (u32 mul/add/xor/sub/compare, degree 2^13);
+* `small_u32`: the same u32 loop and seed under `test_config`, sized to
+  2^7 rows (the CPU tests in tests/test_torch_u32.py).
 
 For each: degree_bits, num_gates, the constants/sigmas cap, the public
-inputs, the proof length and the proof sha256.  The whole run takes about
-20 minutes on one CPU core: the JAX package proves config 1 and config 3.
+inputs, the proof length, the proof sha256 and the sha256 of the
+serialized verifier key.  The whole run takes about half an hour on one CPU
+core: the JAX package proves configs 1, 2 and 3.
 
     python scripts/make_torch_port_vectors.py           # print
     python scripts/make_torch_port_vectors.py --write   # rewrite the fixture
+
+`--only a,b` computes just the named entries and keeps the others from the
+fixture.  `--build-only a,b` builds the named entries without proving:
+their build fields must equal the fixture's, and their proof fields are
+kept from it (this adds a field that needs only the build, such as the
+verifier-key digest, without the long proves).
 """
 from __future__ import annotations
 
@@ -31,6 +44,17 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(ROOT, "tests", "torch_port_vectors.json")
+
+
+def tiny(ir):
+    """The circuit of tests/test_golden_vectors.py under test_config."""
+    b = ir.CircuitBuilder(ir.CircuitConfig.test_config())
+    x = b.add_virtual_target()
+    y = b.add_virtual_target()
+    z = b.mul_add(x, y, x)
+    for t in b.two_to_one([x, y, z, x], [y, z, x, y]):
+        b.register_public_input(t)
+    return b, {x: 111, y: 222}
 
 
 def small_chain(ir, degree_bits: int = 6):
@@ -90,44 +114,109 @@ def small_smt(ir, degree_bits: int = 7, n_levels: int = 4):
     return b, inputs
 
 
-def _record(builder, inputs, serialize_proof) -> dict:
+def small_u32(ir, degree_bits: int = 7):
+    """`bench.circuits.build_u32_mix`'s loop (same seed, same unit, 16 rows
+    of margin) under test_config."""
+    import random
+    import plonky2_tpu.gadgets  # noqa: F401  (attaches the u32 builder API)
+
+    rng = random.Random(0x32BE7C4)
+    b = ir.CircuitBuilder(ir.CircuitConfig.test_config())
+    x = b.add_virtual_u32_target()
+    y = b.add_virtual_u32_target()
+    acc = x
+    while b.num_gates() < (1 << degree_bits) - 16:
+        lo, hi = b.mul_u32(acc, y)
+        s, _carry = b.add_u32(lo, hi)
+        xor = b.xor_u32(s, acc)
+        d, _borrow = b.sub_u32(xor, y, b.zero_u32())
+        _lt = b.is_less_than_u32(d, y)
+        acc = d
+    b.register_public_input(acc.target)
+    return b, {x.target: rng.randrange(1 << 32), y.target: rng.randrange(1 << 32)}
+
+
+BUILD_FIELDS = ("degree_bits", "num_gates", "cs_cap", "verifier_data_sha256")
+
+
+def _record(builder, inputs, prove: bool = True) -> dict:
+    from plonky2_tpu.serialization import serialize_proof, serialize_verifier_data
     num_gates = builder.num_gates()
     data = builder.build()
-    proof = data.prove(inputs)
-    data.verify(proof)
-    raw = serialize_proof(proof)
-    return {
+    out = {
         "degree_bits": data.common.degree_bits,
         "num_gates": num_gates,
         "cs_cap": [[int(x) for x in d] for d in data.verifier.cs_cap],
-        "public_inputs": [int(x) for x in proof.public_inputs],
-        "proof_len": len(raw),
-        "proof_sha256": hashlib.sha256(raw).hexdigest(),
+        "verifier_data_sha256": hashlib.sha256(
+            serialize_verifier_data(data.verifier)).hexdigest(),
+    }
+    if prove:
+        proof = data.prove(inputs)
+        data.verify(proof)
+        raw = serialize_proof(proof)
+        out.update({
+            "public_inputs": [int(x) for x in proof.public_inputs],
+            "proof_len": len(raw),
+            "proof_sha256": hashlib.sha256(raw).hexdigest(),
+        })
+    return out
+
+
+def _circuits(ir):
+    from plonky2_tpu.bench.circuits import (build_poseidon_chain,
+                                            build_smt_process, build_u32_mix)
+    return {
+        "tiny": lambda: tiny(ir),
+        "config1": lambda: build_poseidon_chain(12)[:2],
+        "small_chain": lambda: small_chain(ir),
+        "config3": lambda: build_smt_process(14)[:2],
+        "small_smt": lambda: small_smt(ir),
+        "config2": lambda: build_u32_mix(13)[:2],
+        "small_u32": lambda: small_u32(ir),
     }
 
 
-def compute_vectors() -> dict:
+def load_fixture() -> dict:
+    with open(FIXTURE) as f:
+        return json.load(f)
+
+
+def compute_vectors(only=None, build_only=()) -> dict:
+    """Every entry (or those named in `only`, the rest kept from the
+    fixture); entries in `build_only` are built, not proved."""
     sys.path.insert(0, ROOT)
     import jax
     jax.config.update("jax_platforms", "cpu")
     from plonky2_tpu import ir
-    from plonky2_tpu.bench.circuits import build_poseidon_chain, build_smt_process
-    from plonky2_tpu.serialization import serialize_proof
 
-    out = {}
-    b, inputs, _ = build_poseidon_chain(12)
-    out["config1"] = _record(b, inputs, serialize_proof)
-    b, inputs = small_chain(ir)
-    out["small_chain"] = _record(b, inputs, serialize_proof)
-    b, inputs, _ = build_smt_process(14)
-    out["config3"] = _record(b, inputs, serialize_proof)
-    b, inputs = small_smt(ir)
-    out["small_smt"] = _record(b, inputs, serialize_proof)
+    circuits = _circuits(ir)
+    chosen = set(only or ()) | set(build_only)
+    out = load_fixture() if chosen else {}
+    for name, make in circuits.items():
+        if chosen and name not in chosen:
+            continue
+        b, inputs = make()
+        if name in build_only:
+            rec = _record(b, inputs, prove=False)
+            old = out[name]
+            for k in BUILD_FIELDS[:3]:
+                if rec[k] != old[k]:
+                    raise SystemExit(f"{name}: {k} differs from the fixture")
+            out[name] = {**old, **rec}
+        else:
+            out[name] = _record(b, inputs)
+        print(f"{name}: done", file=sys.stderr, flush=True)
     return out
 
 
+def _names(flag: str) -> list:
+    if flag not in sys.argv:
+        return []
+    return sys.argv[sys.argv.index(flag) + 1].split(",")
+
+
 if __name__ == "__main__":
-    vectors = compute_vectors()
+    vectors = compute_vectors(_names("--only"), _names("--build-only"))
     if "--write" in sys.argv:
         with open(FIXTURE, "w") as f:
             json.dump(vectors, f, indent=1)
