@@ -1,12 +1,14 @@
 """Smoke run of the PyTorch/CUDA port (`plonky2_tpu_torch`) on one GPU.
 
-Drives the port's three main paths — build, witness, prove and serialize
+Drives the port's four main paths — build, witness, prove and serialize
 the config-1 circuit (Poseidon chain, 2^12 rows), the config-2 circuit (u32
 mul/add/xor/sub/compare, 2^13 rows) and the config-3 circuit (51 chained
 depth-32 SMT process proofs, 2^14 rows), all under
-standard_recursion_config — on the card, after checking each hand-written
-kernel against its plain torch version there, and verifies every proof
-with the port's host verifier:
+standard_recursion_config, and the config-4 circuit (one secp256k1 ECDSA
+verify, 55,421 gates, 2^16 rows, under standard_ecc_config: 136 wires) —
+on the card, after checking each hand-written kernel against its plain
+torch version there, and verifies every proof with the port's host
+verifier:
 
   1. device      name, power limit, SM clock; fails without CUDA
   2. build       nvcc builds plonky2_tpu_torch/csrc/*.cu, one process per
@@ -26,18 +28,22 @@ with the port's host verifier:
                  (2^11..2^13), the first design's body (n = 4), and rates
                  0, 1, 3 and 6
   6. K3          tiled four-step LDE kernel against the plain LDE, at
-                 config 3's wire and Z shapes, config 4's size, 2^18
-                 to 2^20 (three register groups), the odd sizes 2^15 and
-                 2^17 (n1 != n2), one polynomial, and rates 0, 1 and 6
+                 config 3's wire and Z shapes, config 4's wire shape
+                 [136, 2^16], 2^18 to 2^20 (three register groups), the
+                 odd sizes 2^15 and 2^17 (n1 != n2), one polynomial, and
+                 rates 0, 1 and 6
   7. tiny        the golden tiny circuit's proof sha256
   8. config 1    proof bytes equal the JAX package's (tests/torch_port_vectors.json)
   9. config 2    the same, proved twice
  10. config 3    the same, proved twice
+ 11. config 4    the same, proved twice; then K3 against the plain LDE at
+                 its constants/sigmas and Z/partial-products commit shapes,
+                 read from its built common data
 
-Every proof phase (7-10) ends with a verify step: the port's verifier
-accepts the card's proof and rejects it with one public input or one
-opening changed, and the verifier key's bytes have the fixture's sha256
-and read back to the same bytes.
+Every proof phase (7-11) ends with a verify step: the port's verifier
+accepts the card's proof and rejects it with one public input (the wires
+cap where there is none) or one opening changed, and the verifier key's
+bytes have the fixture's sha256 and read back to the same bytes.
 
 All checks are exact: field arithmetic has no rounding, so every tolerance
 is 0.  Kernel inputs cover all of [0, p), edge values included.  Kernel
@@ -63,6 +69,9 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# nvidia-smi's "name, power limit" of the card, set by phase_device and
+# printed beside every wall, span and memory figure
+CARD = ""
 
 
 def log(msg: str) -> None:
@@ -204,7 +213,9 @@ def phase_device():
     log(f"[device] {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     sm_mhz = float(_smi("clocks.max.sm").split()[0])
     log(f"[device] maximum SM clock {sm_mhz:.0f} MHz")
-    log(_smi("name,power.limit"))
+    global CARD
+    CARD = _smi("name,power.limit")
+    log(CARD)
     return name, sm_mhz * 1e6
 
 
@@ -486,8 +497,8 @@ def phase_k3(device):
     # larger and odd log n (n1 = 2^(log n // 2) < n2 when log n is odd):
     # the tiles, row groups, register groups and tables take other shapes
     out.update(_lde_check("K3", device, rng, kernel, plain,
-                          ((135, 1 << 15), (135, 1 << 16), (20, 1 << 17), (2, 1 << 18),
-                           (2, 1 << 19), (2, 1 << 20)), 3, plain_brackets=2))
+                          ((135, 1 << 15), (135, 1 << 16), (136, 1 << 16), (20, 1 << 17),
+                           (2, 1 << 18), (2, 1 << 19), (2, 1 << 20)), 3, plain_brackets=2))
     out.update(_lde_check("K3", device, rng, kernel, plain, ((3, 1 << 14),), 6))
     # one polynomial, and the rates whose coset loop runs once or twice
     out.update(_lde_check("K3", device, rng, kernel, plain, ((1, 1 << 14),), 3))
@@ -526,8 +537,9 @@ def fixture(key: str) -> dict:
 
 def verify_step(tag: str, data, proof, want: dict) -> None:
     """The port's verifier on the card's proof: it accepts it (the wall is
-    printed) and rejects it with a public input or an opening changed; the
-    verifier key has the fixture's sha256 and round-trips."""
+    printed) and rejects it with a public input (or, without one, the wires
+    cap) or an opening changed; the verifier key has the fixture's sha256
+    and round-trips."""
     import copy
     from plonky2_tpu_torch.field import gl
     from plonky2_tpu_torch.serialization import (deserialize_verifier_data,
@@ -539,12 +551,17 @@ def verify_step(tag: str, data, proof, want: dict) -> None:
     def bump_public_input(p):
         p.public_inputs[0] = (p.public_inputs[0] + 1) % gl.P
 
+    def bump_wires_cap(p):
+        p.wires_cap[0][0] = (p.wires_cap[0][0] + 1) % gl.P
+
     def bump_opening(p):
         c0, c1 = p.openings.wires[0]
         p.openings.wires[0] = ((c0 + 1) % gl.P, c1)
 
-    for what, tamper in (("a public input", bump_public_input),
-                         ("an opening", bump_opening)):
+    # config 4 has no public inputs: its first tamper is the wires cap
+    first = (("a public input", bump_public_input) if proof.public_inputs
+             else ("the wires cap", bump_wires_cap))
+    for what, tamper in (first, ("an opening", bump_opening)):
         bad = copy.deepcopy(proof)
         tamper(bad)
         try:
@@ -560,15 +577,15 @@ def verify_step(tag: str, data, proof, want: dict) -> None:
                              f"{want['verifier_data_sha256']}")
     if serialize_verifier_data(deserialize_verifier_data(vk)) != vk:
         raise AssertionError(f"{tag} verifier key does not round-trip")
-    log(f"[{tag}] verify {verify_s:.3f} s (host): accepted; verifier key {len(vk)} bytes, "
-        f"sha256 {digest} equals the fixture and round-trips")
+    log(f"[{tag}] verify {verify_s:.3f} s (host; {CARD}): accepted; verifier key "
+        f"{len(vk)} bytes, sha256 {digest} equals the fixture and round-trips")
 
 
 def phase_config(tag: str, device, build, fixture_key: str, proves: int = 2):
     """Build, witness and prove one configuration on the card; its proof
     bytes, cs_cap, public inputs and shape must equal the JAX fixture, and
-    every prove must give the same bytes; then the verify step.  -> kernel
-    launches on the path (build + first prove)."""
+    every prove must give the same bytes; then the verify step.  -> (kernel
+    launches on the path (build + first prove), the circuit's common data)."""
     import torch
     from plonky2_tpu_torch import utils
     from plonky2_tpu_torch.hashes import cuda_poseidon
@@ -627,16 +644,38 @@ def phase_config(tag: str, device, build, fixture_key: str, proves: int = 2):
     log(f"[{tag}] {meta['name']} 2^{data.common.degree_bits} ({num_gates} gates): "
         f"cs_cap, public inputs, {len(raw)} bytes and sha256 {digest} equal the JAX fixture")
     log(f"[{tag}] launches on the main path (build + first prove): "
-        + ", ".join(f"{k} {v}" for k, v in launches.items()))
+        + ", ".join(f"{k} {v}" for k, v in launches.items()) + f" ({CARD})")
     log(f"[{tag}] build {build_s:.3f} s; witness {witness_s:.3f} s; prove "
         + ", ".join(f"{t:.3f} s" for t in prove_s)
-        + f"; peak device memory {peak / 2**20:.1f} MiB")
+        + f"; peak device memory {peak / 2**20:.1f} MiB ({CARD})")
     for i, lines in enumerate(spans):
-        log(f"[{tag}] phase spans, prove {i + 1} (synchronized):")
+        log(f"[{tag}] phase spans, prove {i + 1} (synchronized; {CARD}):")
         for line in lines:
             log("  " + line)
     verify_step(tag, data, proof, want)
-    return launches
+    return launches, data.common
+
+
+def phase_k3_commits(device, tag, common):
+    """Hold K3 at the shapes of a circuit's other two commits, as its built
+    common data gives them: [selectors | constants | sigmas] at build, and
+    the Z polys with the partial products in each prove."""
+    import numpy as np
+    import torch
+    from plonky2_tpu_torch import ntt
+    from plonky2_tpu_torch.ntt import cuda_lde_tiled
+    n = 1 << common.degree_bits
+    cs_rows = (len(common.selector_info.groups) + common.num_constants_polys
+               + common.config.num_routed_wires)
+    zs_rows = common.config.num_challenges * (1 + common.num_partial_products)
+    log(f"[K3] {tag}'s constants/sigmas commit [{cs_rows}, {n}] and Z/partial-products "
+        f"commit [{zs_rows}, {n}], from its common data")
+    out = _lde_check("K3", device, np.random.RandomState(4),
+                     cuda_lde_tiled.lde_from_values_tiled_rev_cuda, ntt.lde_from_values_rev,
+                     ((cs_rows, n), (zs_rows, n)), common.config.fri.rate_bits,
+                     plain_brackets=2)
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -651,18 +690,17 @@ def main() -> int:
     k3 = phase_k3(device)
     phase_tiny(device)
 
-    from plonky2_tpu_torch.bench import (build_poseidon_chain, build_smt_process,
-                                         build_u32_mix)
-    paths = {
-        "config1": phase_config("config1", device, lambda: build_poseidon_chain(12),
-                                "config1"),
-        "config2": phase_config("config2", device, lambda: build_u32_mix(13),
-                                "config2"),
-        "config3": phase_config("config3", device, lambda: build_smt_process(14),
-                                "config3"),
-    }
+    from plonky2_tpu_torch.bench import (build_ecdsa, build_poseidon_chain,
+                                         build_smt_process, build_u32_mix)
+    paths, common = {}, {}
+    for path, build in (("config1", lambda: build_poseidon_chain(12)),
+                        ("config2", lambda: build_u32_mix(13)),
+                        ("config3", lambda: build_smt_process(14)),
+                        ("config4", lambda: build_ecdsa(1))):
+        paths[path], common[path] = phase_config(path, device, build, path)
+    k3.update(phase_k3_commits(device, "config4", common["config4"]))
     required = {"config1": ("K1", "K2-rev"), "config2": ("K1", "K2-rev"),
-                "config3": ("K1", "K3")}
+                "config3": ("K1", "K3"), "config4": ("K1", "K3")}
     for path, kernels in required.items():
         for k in kernels:
             if paths[path][k] <= 0:
@@ -689,7 +727,12 @@ def main() -> int:
          k2_nat[(135, 4096, 3)], lde_work(135, 4096, 3, k2_table_words(12, 3)), None),
         ("K3", "lde_from_values_tiled_rev [135, 16384] rate 3 (config 3 wires)",
          "plonky2_tpu_torch/csrc/lde_tiled.cu", "plonky2_tpu/ntt/pallas_lde_tiled.py:338",
-         k3[(135, 1 << 14, 3)], lde_work(135, 1 << 14, 3, k3_table_words(14, 3)), None),
+         k3[(135, 1 << 14, 3)], lde_work(135, 1 << 14, 3, k3_table_words(14, 3)),
+         ("config3",)),
+        ("K3", "lde_from_values_tiled_rev [136, 65536] rate 3 (config 4 wires)",
+         "plonky2_tpu_torch/csrc/lde_tiled.cu", "plonky2_tpu/ntt/pallas_lde_tiled.py:338",
+         k3[(136, 1 << 16, 3)], lde_work(136, 1 << 16, 3, k3_table_words(16, 3)),
+         ("config4",)),
     ]
     def report(key, label, ms, nbytes, imads):
         bound_ms, bound_by = bound(nbytes, imads, sm_hz)

@@ -1,4 +1,5 @@
-"""Benchmark circuits: configs 1 (Poseidon chain), 2 (u32 mix) and 3 (SMT
-process) of BASELINE.md."""
+"""Benchmark circuits: configs 1 (Poseidon chain), 2 (u32 mix), 3 (SMT
+process) and 4 (secp256k1 ECDSA verify) of BASELINE.md."""
 
-from .circuits import build_poseidon_chain, build_smt_process, build_u32_mix  # noqa: F401
+from .circuits import (build_ecdsa, build_poseidon_chain,  # noqa: F401
+                       build_small_ecc, build_smt_process, build_u32_mix)

@@ -1,14 +1,15 @@
 """Device profile of one warm prove on the card, with `torch.profiler`.
 
-Builds config 1 (`build_poseidon_chain(12)`), config 2 (`build_u32_mix(13)`)
-or config 3 (`build_smt_process(14)`) on the card, proves once to warm up, then
-profiles one more prove (CPU and CUDA activities) and prints: the prove's
-wall time, the number of device operations, the device's busy time (the
-union of the device operations' intervals) and its share of the wall, the
-same share once the host witness generation (timed alone after the
-profile) is taken out, the device time of the largest kernels by name,
-and that of every hand-written kernel (csrc/: the kernels in an anonymous
-namespace outside PyTorch's `at::native`).  The card's name and power limit come first.
+Builds config 1 (`build_poseidon_chain(12)`), config 2 (`build_u32_mix(13)`),
+config 3 (`build_smt_process(14)`) or config 4 (`build_ecdsa(1)`) on the
+card, proves once to warm up, then profiles one more prove (CPU and CUDA
+activities) and prints: the prove's wall time, the number of device
+operations, the device's busy time (the union of the device operations'
+intervals) and its share of the wall, the same share once the host witness
+generation (timed alone after the profile) is taken out, the device time of
+the largest kernels by name, and that of every hand-written kernel (csrc/:
+the kernels in an anonymous namespace outside PyTorch's `at::native`).  The
+card's name and power limit come first.
 
     python -m plonky2_tpu_torch.bench.profile --config 3
 """
@@ -40,9 +41,9 @@ def _busy_us(intervals) -> float:
 
 def main() -> int:
     from ..prove.prover import witness_matrix
-    from . import build_poseidon_chain, build_smt_process, build_u32_mix
+    from . import build_ecdsa, build_poseidon_chain, build_smt_process, build_u32_mix
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--config", type=int, choices=(1, 2, 3), default=3)
+    parser.add_argument("--config", type=int, choices=(1, 2, 3, 4), default=3)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("CUDA is not available: the profile needs a GPU")
@@ -52,7 +53,7 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0])
 
     build = {1: lambda: build_poseidon_chain(12), 2: lambda: build_u32_mix(13),
-             3: lambda: build_smt_process(14)}
+             3: lambda: build_smt_process(14), 4: lambda: build_ecdsa(1)}
     b, inputs, meta = build[args.config]()
     data = b.build(device="cuda")
     data.prove(inputs)
@@ -77,7 +78,7 @@ def main() -> int:
     t0 = time.perf_counter()
     witness_matrix(data.prover, inputs)
     witness_s = time.perf_counter() - t0
-    print(f"config {args.config} ({meta['name']}, 2^{meta['degree_bits']} rows): "
+    print(f"config {args.config} ({meta['name']}, 2^{data.common.degree_bits} rows): "
           f"warm prove {wall_s:.4f} s under the profiler; {len(device_ops)} device "
           f"operations; device busy {busy_s:.4f} s = {100 * busy_s / wall_s:.2f}% of "
           f"the wall (idle {100 - 100 * busy_s / wall_s:.2f}%); summed device time "

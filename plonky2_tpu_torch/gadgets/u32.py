@@ -11,7 +11,6 @@ The functions are attached to `CircuitBuilder` as methods at import.
 
 from __future__ import annotations
 
-import inspect
 from dataclasses import dataclass
 
 from ..field import gl
@@ -20,7 +19,8 @@ from ..gates.u32_arithmetic import (U32AddManyGate, U32ArithmeticGate,
                                     U32RangeCheckGate)
 from ..gates.u32_interleave import (U32InterleaveGate, UninterleaveToB32Gate,
                                     UninterleaveToU32Gate)
-from ..ir.builder import CircuitBuilder, Wire
+from ..ir.builder import Wire
+from . import attach
 
 
 @dataclass(frozen=True)
@@ -332,6 +332,4 @@ def conditional_u64(self, x, y, b):
 # attach to CircuitBuilder
 # ------------------------------------------------------------------
 
-for _name, _fn in list(globals().items()):
-    if inspect.isfunction(_fn) and _fn.__module__ == __name__:
-        setattr(CircuitBuilder, _name, _fn)
+attach(globals())

@@ -8,10 +8,11 @@ oracle) on that device, the card unless the caller asks for the CPU, plus
 host tables for witness routing.
 
 The port carries the arithmetic, constant, public-input, noop, Poseidon,
-base-sum, comparison and u32 gates (the u32 builder methods come from
-`gadgets/u32.py`).  Builder methods that place any other gate (random
-access, exponentiation, the extension-field gates, coset interpolation,
-lookups) raise NotImplementedError naming the gate.
+base-sum, comparison, random-access and u32 gates (the u32, biguint,
+nonnative, curve and ECDSA builder methods come from `gadgets/`).  Builder
+methods that place any other gate (exponentiation, the extension-field
+gates, coset interpolation, lookups) raise NotImplementedError naming the
+gate.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from collections import namedtuple
 
 from ..field import gl
 from ..gates import (ArithmeticGate, BaseSumGate, ComparisonGate, ConstantGate,
-                     PoseidonGate)
+                     PoseidonGate, RandomAccessGate)
 from ..hashes import poseidon
 from ..utils.device import DEFAULT_DEVICE
 from ..witness import NamedGenerator
@@ -241,10 +242,28 @@ class CircuitBuilder:
         self.connect(out, Wire(row, gate.WIRE_RESULT))
         return out
 
-    # ---------------- gates not ported yet ----------------
-
     def random_access(self, index, items: list):
-        _not_ported("RandomAccessGate")
+        """items[index], constrained through one RandomAccessGate copy.
+        Pads the list to a power of two with its last item; copies are
+        slot-packed per `bits` variant."""
+        n = len(items)
+        if n < 1:
+            raise ValueError("random_access needs at least one item")
+        if n == 1:
+            return items[0]
+        bits = (n - 1).bit_length()
+        items = list(items) + [items[-1]] * ((1 << bits) - n)
+        gate = RandomAccessGate.from_config(self.config, bits)
+        row, slot = self._claim_slot((gate.key(),), gate, [], gate.num_copies)
+        ws = gate.wires_copy(slot)
+        self.connect(index, Wire(row, ws["index"]))
+        for i, it in enumerate(items):
+            self.connect(it, Wire(row, ws["items"] + i))
+        out = self.add_virtual_target()
+        self.connect(out, Wire(row, ws["claimed"]))
+        return out
+
+    # ---------------- gates not ported yet ----------------
 
     def exp_from_bits(self, base, bits: list):
         _not_ported("ExponentiationGate")

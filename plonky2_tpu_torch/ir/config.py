@@ -3,8 +3,8 @@
 Host copy of `plonky2_tpu/ir/config.py` (plonky2's `CircuitConfig`
 presets).  The port hashes with Poseidon only, so the JAX config's two
 hasher fields are the one constant `HASHER` (the verifier key writes it for
-both), and the presets that select another hasher (keccak, poseidon2) or
-serve gadgets not ported yet (the ECC presets) are left out.
+both), and the presets that select another hasher (keccak, poseidon2) are
+left out.
 """
 
 from __future__ import annotations
@@ -32,6 +32,16 @@ class CircuitConfig:
     @staticmethod
     def standard_recursion_config() -> "CircuitConfig":
         return CircuitConfig()
+
+    @staticmethod
+    def standard_ecc_config() -> "CircuitConfig":
+        """plonky2's preset for the secp256k1 circuits (config 4): 136
+        wires, 80 routed."""
+        return CircuitConfig(num_wires=136)
+
+    @staticmethod
+    def wide_ecc_config() -> "CircuitConfig":
+        return CircuitConfig(num_wires=234, num_routed_wires=80)
 
     @staticmethod
     def test_config() -> "CircuitConfig":

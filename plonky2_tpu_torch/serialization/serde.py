@@ -26,15 +26,16 @@ from .buffer import Buffer
 # ------------------------------------------------------------------
 
 # Gates of the JAX registry that the port does not carry yet.
-NOT_PORTED = ("Lookup", "LookupTable", "Poseidon2", "RandomAccess",
-              "Exponentiation", "ArithmeticExtension", "MulExtension",
-              "Reducing", "ReducingExtension", "CosetInterpolation")
+NOT_PORTED = ("Lookup", "LookupTable", "Poseidon2", "Exponentiation",
+              "ArithmeticExtension", "MulExtension", "Reducing",
+              "ReducingExtension", "CosetInterpolation")
 
 
 def _registry():
     from ..gates import (ArithmeticGate, BaseSumGate, ConstantGate, NoopGate,
                          PoseidonGate, PublicInputGate)
     from ..gates.comparison import ComparisonGate, U32SubtractionGate
+    from ..gates.random_access import RandomAccessGate
     from ..gates.u32_arithmetic import (U32AddManyGate, U32ArithmeticGate,
                                         U32RangeCheckGate)
     from ..gates.u32_interleave import (U32InterleaveGate,
@@ -57,6 +58,8 @@ def _registry():
             lambda a: UninterleaveToB32Gate(num_ops=a["num_ops"]),
         "U32Subtraction": lambda a: U32SubtractionGate(num_ops=a["num_ops"]),
         "Comparison": lambda a: ComparisonGate(num_bits=a["num_bits"]),
+        "RandomAccess":
+            lambda a: RandomAccessGate(a["bits"], a["num_copies"]),
     }
 
 

@@ -1,7 +1,7 @@
 """Write tests/torch_port_vectors.json: the JAX package's proof digests
 that the PyTorch port (`plonky2_tpu_torch`) must reproduce byte for byte.
 
-Seven circuits, built, proved and verified with the JAX package on the
+Nine circuits, built, proved and verified with the JAX package on the
 CPU:
 
 * `tiny`: the golden tiny circuit of tests/test_golden_vectors.py (its
@@ -19,12 +19,20 @@ CPU:
 * `config2`: `bench.circuits.build_u32_mix(13)` under
   `standard_recursion_config` (u32 mul/add/xor/sub/compare, degree 2^13);
 * `small_u32`: the same u32 loop and seed under `test_config`, sized to
-  2^7 rows (the CPU tests in tests/test_torch_u32.py).
+  2^7 rows (the CPU tests in tests/test_torch_u32.py);
+* `config4`: `bench.circuits.build_ecdsa(1)` under `standard_ecc_config`
+  (one secp256k1 ECDSA verify, 136 wires, degree 2^16);
+* `small_ecc`: secp256k1 curve_add, curve_double, a RandomAccessGate
+  select over four points and the GLV scalar split under `test_config`,
+  at 2^9 rows (the CPU tests in tests/test_torch_ecdsa.py).
 
 For each: degree_bits, num_gates, the constants/sigmas cap, the public
 inputs, the proof length, the proof sha256 and the sha256 of the
-serialized verifier key.  The whole run takes about half an hour on one CPU
-core: the JAX package proves configs 1, 2 and 3.
+serialized verifier key.  `config4` and `small_ecc` also carry
+`graph_sha256` (`graph_digest`): a digest of the builder's graph that a
+test can recompute from the port's builder without a build.  The whole
+run takes about 50 minutes on the CPU: the JAX package proves configs 1,
+2, 3 and 4 (config 4 alone took 710 s, small_ecc 531 s).
 
     python scripts/make_torch_port_vectors.py           # print
     python scripts/make_torch_port_vectors.py --write   # rewrite the fixture
@@ -136,12 +144,84 @@ def small_u32(ir, degree_bits: int = 7):
     return b, {x.target: rng.randrange(1 << 32), y.target: rng.randrange(1 << 32)}
 
 
+def small_ecc(ir):
+    """secp256k1 point ops, a RandomAccessGate select and the GLV scalar
+    split under test_config (2^9 rows).  The public inputs are the limbs
+    of p1 + p2, 2 p1, the selected point, then k1, k2 and their signs."""
+    import random
+    import plonky2_tpu.gadgets  # noqa: F401
+    import plonky2_tpu.gadgets.curve  # noqa: F401
+    from plonky2_tpu.field import secp
+    from plonky2_tpu.gadgets.biguint import set_biguint_target
+
+    rng = random.Random(0xECC5A11)
+    b = ir.CircuitBuilder(ir.CircuitConfig.test_config())
+    p1 = b.add_virtual_affine_point_target()
+    p2 = b.add_virtual_affine_point_target()
+    s = b.curve_add(p1, p2)
+    d = b.curve_double(p1)
+    index = b.add_virtual_target()
+    sel = b.random_access_curve_points(index, [p1, p2, s, d])
+    k = b.add_virtual_nonnative_target(secp.N)
+    k1, k2, k1_neg, k2_neg = b.decompose_secp256k1_scalar(k)
+    for pt in (s, d, sel):
+        for c in (pt.x, pt.y):
+            b.register_public_inputs([t.target for t in c.value.limbs])
+    for c in (k1, k2):
+        b.register_public_inputs([t.target for t in c.value.limbs])
+    b.register_public_inputs([k1_neg, k2_neg])
+
+    pt1 = secp.mul(secp.G, rng.randrange(1, secp.N))
+    pt2 = secp.mul(secp.G, rng.randrange(1, secp.N))
+    inputs: dict = {index: rng.randrange(4)}
+    for tgt, pt in ((p1, pt1), (p2, pt2)):
+        set_biguint_target(inputs, tgt.x.value, pt.x)
+        set_biguint_target(inputs, tgt.y.value, pt.y)
+    set_biguint_target(inputs, k.value, rng.randrange(secp.N))
+    return b, inputs
+
+
+def graph_digest(builder) -> str:
+    """sha256 of the builder's graph before `build()`: every row's gate key
+    and constants, the public inputs, and the copy classes (each class its
+    members' reprs, sorted).  Two builders with the same digest compile to
+    the same arrays."""
+    # The builder's `_parent` is a union-find forest; its roots are found
+    # here with memoised paths (the builder's `_find` compresses one link a
+    # call, which is quadratic on the long chains of a 2^16-row circuit).
+    parent, root = builder._parent, {}
+
+    def find(x):
+        path = []
+        while x not in root and x in parent:
+            path.append(x)
+            x = parent[x]
+        r = root.get(x, x)
+        for y in path:
+            root[y] = r
+        return r
+
+    classes: dict = {}
+    for t in set(parent) | set(parent.values()):
+        classes.setdefault(find(t), []).append(repr(t))
+    graph = {
+        "rows": [[g.key(), [int(c) for c in cs]]
+                 for g, cs in builder.gate_instances],
+        "public_inputs": [repr(t) for t in builder.public_inputs],
+        "copy_classes": sorted(sorted(c) for c in classes.values()),
+    }
+    raw = json.dumps(graph, separators=(",", ":"), default=repr)
+    return hashlib.sha256(raw.encode()).hexdigest()
+
+
 BUILD_FIELDS = ("degree_bits", "num_gates", "cs_cap", "verifier_data_sha256")
+GRAPH_DIGESTED = ("config4", "small_ecc")
 
 
-def _record(builder, inputs, prove: bool = True) -> dict:
+def _record(builder, inputs, prove: bool = True, graph: bool = False) -> dict:
     from plonky2_tpu.serialization import serialize_proof, serialize_verifier_data
     num_gates = builder.num_gates()
+    digest = graph_digest(builder) if graph else None
     data = builder.build()
     out = {
         "degree_bits": data.common.degree_bits,
@@ -150,6 +230,8 @@ def _record(builder, inputs, prove: bool = True) -> dict:
         "verifier_data_sha256": hashlib.sha256(
             serialize_verifier_data(data.verifier)).hexdigest(),
     }
+    if digest is not None:
+        out["graph_sha256"] = digest
     if prove:
         proof = data.prove(inputs)
         data.verify(proof)
@@ -163,7 +245,7 @@ def _record(builder, inputs, prove: bool = True) -> dict:
 
 
 def _circuits(ir):
-    from plonky2_tpu.bench.circuits import (build_poseidon_chain,
+    from plonky2_tpu.bench.circuits import (build_ecdsa, build_poseidon_chain,
                                             build_smt_process, build_u32_mix)
     return {
         "tiny": lambda: tiny(ir),
@@ -173,6 +255,8 @@ def _circuits(ir):
         "small_smt": lambda: small_smt(ir),
         "config2": lambda: build_u32_mix(13)[:2],
         "small_u32": lambda: small_u32(ir),
+        "small_ecc": lambda: small_ecc(ir),
+        "config4": lambda: build_ecdsa(1)[:2],
     }
 
 
@@ -197,14 +281,14 @@ def compute_vectors(only=None, build_only=()) -> dict:
             continue
         b, inputs = make()
         if name in build_only:
-            rec = _record(b, inputs, prove=False)
+            rec = _record(b, inputs, prove=False, graph=name in GRAPH_DIGESTED)
             old = out[name]
             for k in BUILD_FIELDS[:3]:
                 if rec[k] != old[k]:
                     raise SystemExit(f"{name}: {k} differs from the fixture")
             out[name] = {**old, **rec}
         else:
-            out[name] = _record(b, inputs)
+            out[name] = _record(b, inputs, graph=name in GRAPH_DIGESTED)
         print(f"{name}: done", file=sys.stderr, flush=True)
     return out
 

@@ -172,8 +172,10 @@ def test_builder_helpers_match_jax_graph():
 
 @pytest.mark.slow
 def test_fixture_regenerates_from_jax():
-    # ~30 min on the CPU: the JAX package proves config 1 (2^12 rows),
-    # config 2 (2^13 rows) and config 3 (2^14 rows).
+    # ~50 min on the CPU: the JAX package proves config 1 (2^12 rows),
+    # config 2 (2^13 rows), config 3 (2^14 rows) and config 4 (2^16 rows;
+    # its build and prove took 710 s, small_ecc's 531 s, most of that one
+    # XLA compile of the quotient).
     path = os.path.join(os.path.dirname(HERE), "scripts", "make_torch_port_vectors.py")
     spec = importlib.util.spec_from_file_location("make_torch_port_vectors", path)
     gen = importlib.util.module_from_spec(spec)

@@ -38,6 +38,7 @@ from plonky2_tpu.gates import comparison as jcmp
 from plonky2_tpu.gates import u32_arithmetic as jarith
 from plonky2_tpu.gates import u32_interleave as jil
 from plonky2_tpu.gates.base_sum import BaseSumGate as JBaseSumGate
+from plonky2_tpu.gates.random_access import RandomAccessGate as JRandomAccessGate
 from plonky2_tpu_torch import gates, ir
 from plonky2_tpu_torch.bench import build_poseidon_chain, build_smt_process
 from plonky2_tpu_torch.field import gl
@@ -82,6 +83,7 @@ GATES = {
     "U32Interleave": (gates.U32InterleaveGate(3), jil.U32InterleaveGate(3)),
     "UninterleaveToU32": (gates.UninterleaveToU32Gate(2), jil.UninterleaveToU32Gate(2)),
     "UninterleaveToB32": (gates.UninterleaveToB32Gate(2), jil.UninterleaveToB32Gate(2)),
+    "RandomAccess": (gates.RandomAccessGate(4, 4), JRandomAccessGate(4, 4)),
 }
 
 
@@ -214,7 +216,7 @@ def test_verifier_data_bytes_equal_jax_and_roundtrip():
     verify(vd, proof)
 
 
-@pytest.mark.parametrize("key", ["RandomAccess(bits=4,num_copies=2)",
+@pytest.mark.parametrize("key", ["Exponentiation(num_power_bits=8)",
                                  "Poseidon2(width=12)", "LookupTable(num_slots=3)",
                                  "CosetInterpolation(subgroup_bits=4)",
                                  "ArithmeticExtension(num_ops=10)"])
