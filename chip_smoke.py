@@ -1,13 +1,13 @@
 """Smoke run of the PyTorch/CUDA port (`plonky2_tpu_torch`) on one GPU.
 
-Drives the port's four main paths — build, witness, prove and serialize
-the config-1 circuit (Poseidon chain, 2^12 rows), the config-2 circuit (u32
-mul/add/xor/sub/compare, 2^13 rows) and the config-3 circuit (51 chained
-depth-32 SMT process proofs, 2^14 rows), all under
-standard_recursion_config, and the config-4 circuit (one secp256k1 ECDSA
-verify, 55,421 gates, 2^16 rows, under standard_ecc_config: 136 wires) —
-on the card, after checking each hand-written kernel against its plain
-torch version there, and verifies every proof with the port's host
+Drives the port's four main paths — build, save and load, witness, prove
+and serialize the config-1 circuit (Poseidon chain, 2^12 rows), the
+config-2 circuit (u32 mul/add/xor/sub/compare, 2^13 rows) and the
+config-3 circuit (51 chained depth-32 SMT process proofs, 2^14 rows), all
+under standard_recursion_config, and the config-4 circuit (one secp256k1
+ECDSA verify, 55,421 gates, 2^16 rows, under standard_ecc_config: 136
+wires) — on the card, after checking each hand-written kernel against its
+plain torch version there, and verifies every proof with the port's host
 verifier:
 
   1. device      name, power limit, SM clock; fails without CUDA
@@ -33,12 +33,19 @@ verifier:
                  odd sizes 2^15 and 2^17 (n1 != n2), one polynomial, and
                  rates 0, 1 and 6
   7. tiny        the golden tiny circuit's proof sha256
-  8. config 1    proof bytes equal the JAX package's (tests/torch_port_vectors.json)
-  9. config 2    the same, proved twice
- 10. config 3    the same, proved twice
- 11. config 4    the same, proved twice; then K3 against the plain LDE at
-                 its constants/sigmas and Z/partial-products commit shapes,
-                 read from its built common data
+  8. config 1    proof bytes equal the JAX package's (tests/torch_port_vectors.json);
+                 the built circuit saved to bytes (serialize_prover_data:
+                 the JAX fixture's sha256) and loaded on the card
+                 (deserialize_prover_data: its commit launches K1 and K2-rev
+                 or K3, its cs_cap is the fixture's), proved again from the
+                 loaded circuit to the same bytes; the witness tape's wire
+                 matrix equals the dynamic scheduler's and the fixture's
+                 sha256
+  9. config 2    the same
+ 10. config 3    the same
+ 11. config 4    the same; then K3 against the plain LDE at its
+                 constants/sigmas and Z/partial-products commit shapes, read
+                 from its built common data
 
 Every proof phase (7-11) ends with a verify step: the port's verifier
 accepts the card's proof and rejects it with one public input (the wires
@@ -47,8 +54,9 @@ bytes have the fixture's sha256 and read back to the same bytes.
 
 All checks are exact: field arithmetic has no rounding, so every tolerance
 is 0.  Kernel inputs cover all of [0, p), edge values included.  Kernel
-launch counts are set to 0 just before each main path and read just after
-it.  Each kernel's bound is the larger of its bytes (each input read once,
+launch counts are set to 0 just before each main path (a configuration's
+build and first prove, and its load from bytes) and read just after it.
+Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its 32-bit integer multiplies
 over 64 per clock per SM x 132 SMs x the card's maximum SM clock.  Each
 phase prints its lines and raises on failure.  The line before the last is
@@ -581,23 +589,37 @@ def verify_step(tag: str, data, proof, want: dict) -> None:
         f"{len(vk)} bytes, sha256 {digest} equals the fixture and round-trips")
 
 
-def phase_config(tag: str, device, build, fixture_key: str, proves: int = 2):
-    """Build, witness and prove one configuration on the card; its proof
-    bytes, cs_cap, public inputs and shape must equal the JAX fixture, and
-    every prove must give the same bytes; then the verify step.  -> (kernel
-    launches on the path (build + first prove), the circuit's common data)."""
+def phase_config(tag: str, device, build, fixture_key: str):
+    """Build, witness and prove one configuration on the card; save the
+    built circuit to bytes and load it back on the card (the circuit cache);
+    prove once from the built circuit and once from the loaded one.  The
+    prover data's bytes, the loaded circuit's cs_cap, both proofs' bytes,
+    the public inputs and the shape must equal the JAX fixture; the tape's
+    wire matrix must equal the dynamic scheduler's and the fixture's digest;
+    then the verify step.  -> ({path: kernel launches}: the build and first
+    prove, and the load, each counted from 0 just before it and read just
+    after; the circuit's common data)."""
+    import numpy as np
     import torch
     from plonky2_tpu_torch import utils
     from plonky2_tpu_torch.hashes import cuda_poseidon
     from plonky2_tpu_torch.ntt import cuda_lde, cuda_lde_tiled
-    from plonky2_tpu_torch.prove.prover import witness_matrix
-    from plonky2_tpu_torch.serialization import serialize_proof
+    from plonky2_tpu_torch.prove.prover import scheduler_witness_matrix, witness_matrix
+    from plonky2_tpu_torch.serialization import (deserialize_prover_data, serialize_proof,
+                                                 serialize_prover_data)
     want = fixture(fixture_key)
 
-    torch.cuda.synchronize()
+    def reset_launches():
+        torch.cuda.synchronize()
+        cuda_poseidon.LAUNCHES = cuda_lde.LAUNCHES = cuda_lde.LAUNCHES_NAT = 0
+        cuda_lde_tiled.LAUNCHES = 0
+
+    def read_launches():
+        return {"K1": cuda_poseidon.LAUNCHES, "K2-rev": cuda_lde.LAUNCHES,
+                "K2-nat": cuda_lde.LAUNCHES_NAT, "K3": cuda_lde_tiled.LAUNCHES}
+
     torch.cuda.reset_peak_memory_stats()
-    cuda_poseidon.LAUNCHES = cuda_lde.LAUNCHES = cuda_lde.LAUNCHES_NAT = 0
-    cuda_lde_tiled.LAUNCHES = 0
+    reset_launches()
     t0 = time.perf_counter()
     b, inputs, meta = build()
     num_gates = b.num_gates()
@@ -610,8 +632,7 @@ def phase_config(tag: str, device, build, fixture_key: str, proves: int = 2):
     raw = serialize_proof(proof)
     prove_s = [time.perf_counter() - t0]
     spans = [utils.last_tree().lines()]
-    launches = {"K1": cuda_poseidon.LAUNCHES, "K2-rev": cuda_lde.LAUNCHES,
-                "K2-nat": cuda_lde.LAUNCHES_NAT, "K3": cuda_lde_tiled.LAUNCHES}
+    launches = {tag: read_launches()}
 
     cs_cap = [[int(x) for x in d] for d in data.verifier.cs_cap]
     if num_gates != want["num_gates"] or data.common.degree_bits != want["degree_bits"]:
@@ -627,29 +648,70 @@ def phase_config(tag: str, device, build, fixture_key: str, proves: int = 2):
     if proof.public_inputs != want["public_inputs"]:
         raise AssertionError(f"{tag} public inputs differ from the JAX fixture")
 
-    for _ in range(proves - 1):
-        t0 = time.perf_counter()
-        again = serialize_proof(data.prove(inputs))
-        prove_s.append(time.perf_counter() - t0)
-        spans.append(utils.last_tree().lines())
-        if hashlib.sha256(again).hexdigest() != digest:
-            raise AssertionError(f"{tag} prove {len(prove_s)} gave other bytes")
+    # the circuit cache: bytes of the JAX package's format, loaded on the card
     utils.profiling_disable()
+    t0 = time.perf_counter()
+    blob = serialize_prover_data(data.prover)
+    save_s = time.perf_counter() - t0
+    blob_digest = hashlib.sha256(blob).hexdigest()
+    if blob_digest != want["prover_data_sha256"]:
+        raise AssertionError(f"{tag} prover data sha256 {blob_digest} != JAX fixture "
+                             f"{want['prover_data_sha256']}")
+    reset_launches()
+    t0 = time.perf_counter()
+    loaded = deserialize_prover_data(blob, device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    launches[f"{tag}-load"] = read_launches()
+    if [[int(x) for x in d] for d in loaded.verifier.cs_cap] != want["cs_cap"]:
+        raise AssertionError(f"{tag} loaded circuit's constants/sigmas cap differs from "
+                             f"the JAX fixture")
+    log(f"[{tag}] prover data {len(blob)} bytes, sha256 {blob_digest} equals the JAX "
+        f"fixture; saved in {save_s:.3f} s, loaded on the card in {load_s:.3f} s with its "
+        f"cs_cap equal to the fixture's ({CARD})")
+    log(f"[{tag}] launches on the load path: "
+        + ", ".join(f"{k} {v}" for k, v in launches[f"{tag}-load"].items()) + f" ({CARD})")
+
+    utils.profiling_enable()
+    t0 = time.perf_counter()
+    again = serialize_proof(loaded.prove(inputs))
+    prove_s.append(time.perf_counter() - t0)
+    spans.append(utils.last_tree().lines())
+    utils.profiling_disable()
+    if hashlib.sha256(again).hexdigest() != digest:
+        raise AssertionError(f"{tag} prove from the loaded circuit gave other bytes")
     peak = torch.cuda.max_memory_allocated()
 
+    # the witness through the tape (as the prover runs it, the tape built)
+    # and through the dynamic scheduler, its reference
     t0 = time.perf_counter()
-    witness_matrix(data.prover, inputs)
-    witness_s = time.perf_counter() - t0
+    wires, _ = witness_matrix(data.prover, inputs)
+    tape_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wires_ref, _ = scheduler_witness_matrix(data.prover, inputs)
+    scheduler_s = time.perf_counter() - t0
+    if not np.array_equal(wires, wires_ref):
+        raise AssertionError(f"{tag} tape wire matrix differs from the dynamic "
+                             f"scheduler's at {int((wires != wires_ref).sum())} positions")
+    wires_digest = hashlib.sha256(np.ascontiguousarray(wires, dtype="<u8").tobytes()).hexdigest()
+    if wires_digest != want["wire_matrix_sha256"]:
+        raise AssertionError(f"{tag} wire matrix sha256 {wires_digest} != JAX fixture "
+                             f"{want['wire_matrix_sha256']}")
 
     log(f"[{tag}] {meta['name']} 2^{data.common.degree_bits} ({num_gates} gates): "
-        f"cs_cap, public inputs, {len(raw)} bytes and sha256 {digest} equal the JAX fixture")
+        f"cs_cap, public inputs, {len(raw)} bytes and sha256 {digest} equal the JAX "
+        f"fixture, proved from the built and from the loaded circuit")
+    log(f"[{tag}] wire matrix {wires.shape[0]} x {wires.shape[1]}: the tape's equals the "
+        f"dynamic scheduler's, sha256 {wires_digest} equals the JAX fixture")
     log(f"[{tag}] launches on the main path (build + first prove): "
-        + ", ".join(f"{k} {v}" for k, v in launches.items()) + f" ({CARD})")
-    log(f"[{tag}] build {build_s:.3f} s; witness {witness_s:.3f} s; prove "
+        + ", ".join(f"{k} {v}" for k, v in launches[tag].items()) + f" ({CARD})")
+    log(f"[{tag}] build {build_s:.3f} s; load {load_s:.3f} s; witness through the tape "
+        f"{tape_s:.3f} s, through the scheduler {scheduler_s:.3f} s; prove (built, loaded) "
         + ", ".join(f"{t:.3f} s" for t in prove_s)
         + f"; peak device memory {peak / 2**20:.1f} MiB ({CARD})")
     for i, lines in enumerate(spans):
-        log(f"[{tag}] phase spans, prove {i + 1} (synchronized; {CARD}):")
+        log(f"[{tag}] phase spans, prove {i + 1} ({('built', 'loaded')[i]} circuit; "
+            f"synchronized; {CARD}):")
         for line in lines:
             log("  " + line)
     verify_step(tag, data, proof, want)
@@ -697,10 +759,12 @@ def main() -> int:
                         ("config2", lambda: build_u32_mix(13)),
                         ("config3", lambda: build_smt_process(14)),
                         ("config4", lambda: build_ecdsa(1))):
-        paths[path], common[path] = phase_config(path, device, build, path)
+        launches, common[path] = phase_config(path, device, build, path)
+        paths.update(launches)
     k3.update(phase_k3_commits(device, "config4", common["config4"]))
     required = {"config1": ("K1", "K2-rev"), "config2": ("K1", "K2-rev"),
                 "config3": ("K1", "K3"), "config4": ("K1", "K3")}
+    required.update({f"{path}-load": kernels for path, kernels in list(required.items())})
     for path, kernels in required.items():
         for k in kernels:
             if paths[path][k] <= 0:
@@ -717,22 +781,22 @@ def main() -> int:
         ("K2-rev", "lde_from_values_rev [135, 4096] rate 3 (config 1 wires)",
          "plonky2_tpu_torch/csrc/lde.cu", "plonky2_tpu/ntt/pallas_lde.py:316",
          k2_rev[(135, 4096, 3)], lde_work(135, 4096, 3, k2_table_words(12, 3)),
-         ("config1",)),
+         ("config1", "config1-load")),
         ("K2-rev", "lde_from_values_rev [135, 8192] rate 3 (config 2 wires)",
          "plonky2_tpu_torch/csrc/lde.cu", "plonky2_tpu/ntt/pallas_lde.py:316",
          k2_rev[(135, 1 << 13, 3)], lde_work(135, 1 << 13, 3, k2_table_words(13, 3)),
-         ("config2",)),
+         ("config2", "config2-load")),
         ("K2-nat", "lde_from_values [135, 4096] rate 3 (on no prove path)",
          "plonky2_tpu_torch/csrc/lde.cu", "plonky2_tpu/ntt/pallas_lde.py:303",
          k2_nat[(135, 4096, 3)], lde_work(135, 4096, 3, k2_table_words(12, 3)), None),
         ("K3", "lde_from_values_tiled_rev [135, 16384] rate 3 (config 3 wires)",
          "plonky2_tpu_torch/csrc/lde_tiled.cu", "plonky2_tpu/ntt/pallas_lde_tiled.py:338",
          k3[(135, 1 << 14, 3)], lde_work(135, 1 << 14, 3, k3_table_words(14, 3)),
-         ("config3",)),
+         ("config3", "config3-load")),
         ("K3", "lde_from_values_tiled_rev [136, 65536] rate 3 (config 4 wires)",
          "plonky2_tpu_torch/csrc/lde_tiled.cu", "plonky2_tpu/ntt/pallas_lde_tiled.py:338",
          k3[(136, 1 << 16, 3)], lde_work(136, 1 << 16, 3, k3_table_words(16, 3)),
-         ("config4",)),
+         ("config4", "config4-load")),
     ]
     def report(key, label, ms, nbytes, imads):
         bound_ms, bound_by = bound(nbytes, imads, sm_hz)

@@ -35,11 +35,14 @@ Layout (mirrors plonky2_tpu/):
     gates/      arithmetic, constant, public-input, noop, Poseidon, base-sum,
                 u32 arithmetic / add-many / range-check / subtraction,
                 comparison and interleave gates
-    witness/    witness-generation scheduler
+    witness/    witness generation: the static tape (the prover's path) and
+                the dynamic scheduler (its reference)
+    native/     C++ witness kernels (tape executor, Poseidon rows), g++ at
+                first use
     smt/        native sparse Merkle tree (witnesses of the SMT circuits)
     gadgets/    SMT inclusion / process-proof circuits, u32 / B32 gadgets
     prove/      compile, prover and verifier (host)
-    serialization/  proof and verifier-key bytes, both ways
+    serialization/  proof, verifier-key and prover-data bytes, both ways
     bench/      config-1, -2 and -3 circuits; device profile of a prove
     convert.py  numpy <-> tensor bridges to the JAX package's arrays
 """

@@ -64,5 +64,5 @@ class ArithmeticGate(Gate):
                 lambda vals, row=row, w3=w3, c0=c0, c1=c1: [
                     (Wire(row, w3),
                      (c0 * vals[0] * vals[1] + c1 * vals[2]) % gl.P)],
-                outs=[Wire(row, w3)]))
+                outs=[Wire(row, w3)], op=("arith", c0, c1)))
         return gens

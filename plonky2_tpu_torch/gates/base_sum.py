@@ -86,4 +86,5 @@ class BaseSumGate(Gate):
 
         return [LambdaGenerator([Wire(row, self.WIRE_SUM)], fn,
                                 outs=[Wire(row, self.wire_limb(i))
-                                      for i in range(L)])]
+                                      for i in range(L)],
+                                op=("basesum", base))]

@@ -84,7 +84,8 @@ class U32SubtractionGate(Gate):
             gens.append(LambdaGenerator(
                 [Wire(row, ws["x"]), Wire(row, ws["y"]),
                  Wire(row, ws["borrow_in"])], fn,
-                outs=[Wire(row, ws["result"]), Wire(row, ws["borrow_out"])]))
+                outs=[Wire(row, ws["result"]), Wire(row, ws["borrow_out"])],
+                op=("u32sub",)))
         return gens
 
     def aux_fill(self, rows, wires):
@@ -161,4 +162,5 @@ class ComparisonGate(Gate):
         return [LambdaGenerator(
             [Wire(row, self.WIRE_A), Wire(row, self.WIRE_B)], fn,
             outs=[Wire(row, self.WIRE_RESULT), Wire(row, self.WIRE_E)] +
-                 [Wire(row, self.WIRE_LIMBS + j) for j in range(self.limbs)])]
+                 [Wire(row, self.WIRE_LIMBS + j) for j in range(self.limbs)],
+            op=("cmp",))]

@@ -15,13 +15,15 @@ Counterpart of `plonky2_tpu/gates/poseidon_gate.py`, same wire layout
 output.  `eval` is the generic-algebra definition; `eval_batch_fast` is
 the stacked tensor form the prover uses on the LDE domain ([12, N] state,
 so the MDS layer is one broadcast multiply and sum).  `aux_fill` computes
-the 110 internal wires of every Poseidon row at once on CPU tensors.
+the 110 internal wires of every Poseidon row at once in the native row
+engine (native/witness_kernels.cpp `poseidon_rows`).
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import native
 from ..field import gl
 from ..hashes import poseidon
 from ..witness import Generator
@@ -173,33 +175,14 @@ class PoseidonGate(Gate):
 
     def aux_fill(self, rows, wires):
         """Fill the 110 internal delta/s-box wires of every Poseidon row at
-        once (wires: numpy uint64 [num_wires, n], updated in place), after
-        the dataflow pass scattered inputs, swap and outputs."""
-        ins = gl.to_tensor(wires[WIRE_INPUT:WIRE_INPUT + W][:, rows])   # [12, R]
-        swap = gl.to_tensor(wires[WIRE_SWAP][rows])
-        delta = gl.mul(swap[None], gl.sub(ins[4:8], ins[:4]))
-        aux = [delta]
-        s = _swapped_state(ins, delta)
-        rc = poseidon.rc_tensor(s.device)
-        r = 0
-        for fr in range(4):
-            s = gl.add(s, rc[r][:, None])
-            if fr > 0:
-                aux.append(s)
-            s = poseidon.mds_cols(poseidon.sbox(s))
-            r += 1
-        for _ in range(poseidon.PARTIAL_ROUNDS):
-            s = gl.add(s, rc[r][:, None])
-            aux.append(s[:1])
-            s = poseidon.mds_cols(torch.cat([poseidon.sbox(s[:1]), s[1:]], dim=0))
-            r += 1
-        for _ in range(4):
-            s = gl.add(s, rc[r][:, None])
-            aux.append(s)
-            s = poseidon.mds_cols(poseidon.sbox(s))
-            r += 1
-        vals = gl.from_tensor(torch.cat(aux, dim=0))            # [110, R]
-        wires[WIRE_DELTA:WIRE_DELTA + NUM_AUX, rows] = vals
+        once through the native row engine (wires: numpy uint64 [num_wires,
+        n], updated in place), after the witness pass scattered inputs,
+        swap and outputs."""
+        ins = wires[WIRE_INPUT:WIRE_INPUT + W][:, rows].T          # [R, 12]
+        vals = native.poseidon_rows(
+            ins, wires[WIRE_SWAP][rows], poseidon.ROUND_CONSTANTS, poseidon.MDS,
+            poseidon.FULL_ROUNDS // 2, poseidon.PARTIAL_ROUNDS)
+        wires[WIRE_DELTA:WIRE_DELTA + NUM_AUX, rows] = vals[:, :NUM_AUX].T
 
 
 def permute_row_outputs(ins: list[int], swap: int) -> list[int]:

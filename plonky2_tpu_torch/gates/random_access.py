@@ -107,5 +107,6 @@ class RandomAccessGate(Gate):
                 [Wire(row, ws["items"] + i) for i in range(self.vec_size)],
                 fn,
                 outs=[Wire(row, ws["bits"] + i) for i in range(self.bits)] +
-                     [Wire(row, ws["claimed"])]))
+                     [Wire(row, ws["claimed"])],
+                op=("randacc",)))
         return gens

@@ -45,7 +45,8 @@ class ConstantGate(Gate):
             [],
             lambda _vals, row=row, constants=tuple(constants): [
                 (Wire(row, i), c) for i, c in enumerate(constants)],
-            outs=[Wire(row, i) for i in range(len(constants))])]
+            outs=[Wire(row, i) for i in range(len(constants))],
+            op=("consts",) + tuple(constants))]
 
 
 class PublicInputGate(Gate):

@@ -163,7 +163,8 @@ class U32ArithmeticGate(Gate):
 
             gens.append(LambdaGenerator(
                 [Wire(row, ws["x"]), Wire(row, ws["y"]), Wire(row, ws["z"])],
-                fn, outs=[Wire(row, ws["lo"]), Wire(row, ws["hi"])]))
+                fn, outs=[Wire(row, ws["lo"]), Wire(row, ws["hi"])],
+                op=("u32muladd",)))
         return gens
 
     def aux_fill(self, rows, wires):
@@ -270,7 +271,8 @@ class U32AddManyGate(Gate):
             deps = [Wire(row, ws["addends"] + j) for j in range(n)] + \
                    [Wire(row, ws["carry_in"])]
             gens.append(LambdaGenerator(
-                deps, fn, outs=[Wire(row, ws["lo"]), Wire(row, ws["hi"])]))
+                deps, fn, outs=[Wire(row, ws["lo"]), Wire(row, ws["hi"])],
+                op=("u32addmany",)))
         return gens
 
     def aux_fill(self, rows, wires):

@@ -127,7 +127,8 @@ class U32InterleaveGate(Gate):
             gens.append(LambdaGenerator(
                 [Wire(row, ws["x"])], fn,
                 outs=[Wire(row, ws["x_il"])] +
-                     [Wire(row, ws["bits"] + j) for j in range(32)]))
+                     [Wire(row, ws["bits"] + j) for j in range(32)],
+                op=("interleave",)))
         return gens
 
 
@@ -231,7 +232,8 @@ class _UninterleaveBase(Gate):
             gens.append(LambdaGenerator(
                 [Wire(row, ws["x"])], fn,
                 outs=[Wire(row, ws["evens"]), Wire(row, ws["odds"])] +
-                     [Wire(row, ws["bits"] + j) for j in range(64)]))
+                     [Wire(row, ws["bits"] + j) for j in range(64)],
+                op=("uninterleave", B)))
         return gens
 
 

@@ -64,7 +64,9 @@ class ProverData:
     instance_list: list              # [(gate, constants)] padded
     pi_targets: list                 # registered public-input targets
     class_wires: dict = None         # rep -> list[Wire] (copy classes)
+    classes: dict = None             # rep -> set of all members (serde)
     pi_gate_row: int = -1            # row of the PublicInputGate
+    custom_generators: list = None   # gadget hints only (serde)
 
     @property
     def device(self) -> torch.device:
@@ -187,11 +189,12 @@ def _compile_impl(builder, device) -> CircuitData:
     for r, (g, consts) in enumerate(instances):
         for i, c in enumerate(consts):
             const_vals[i, r] = c
+    common = common_data(config, degree_bits, gates, sel, num_const_polys,
+                         len(builder.public_inputs))
 
     # ---- sigma polynomials from the copy-constraint forest ----
     with timed_span("sigma construction (copy classes)"):
         nr = config.num_routed_wires
-        k_is = [pow(gl.GENERATOR, i, gl.P) for i in range(nr)]
         universe = set(builder._parent.keys()) | set(builder._parent.values())
         classes: dict = {}
         rep_map: dict = {}        # frozen union-find: item -> canonical rep
@@ -209,20 +212,49 @@ def _compile_impl(builder, device) -> CircuitData:
             for i, m in enumerate(ms):
                 nxt = ms[(i + 1) % len(ms)]
                 perm[m.column, m.row] = nxt.column * n + nxt.row
-        sigma_vals = _sigma_polys(perm, k_is, degree_bits, device)
+        sigma_vals = _sigma_polys(perm, common.k_is, degree_bits, device)
 
-    selector_polys = gl.to_tensor(sel_vals, device)
-    constant_polys = gl.to_tensor(const_vals, device)
+    return circuit_data(common, gl.to_tensor(sel_vals, device),
+                        gl.to_tensor(const_vals, device), sigma_vals, instances,
+                        row_gate, list(builder.public_inputs), pi_gate_row, classes,
+                        rep_map, list(builder.custom_generators))
+
+
+def common_data(config, degree_bits: int, gates: list, sel: SelectorInfo,
+                num_constants_polys: int, num_public_inputs: int) -> CommonData:
+    """The circuit's common data; the coset shifts and partial-product
+    counts follow from the config."""
+    nr = config.num_routed_wires
+    qf = config.max_quotient_degree_factor
+    return CommonData(
+        config=config,
+        degree_bits=degree_bits,
+        gates=gates,
+        selector_info=sel,
+        num_constants_polys=num_constants_polys,
+        k_is=[pow(gl.GENERATOR, i, gl.P) for i in range(nr)],
+        num_public_inputs=num_public_inputs,
+        num_partial_products=(nr + qf - 1) // qf - 1,
+        chunk_size=qf,
+    )
+
+
+def circuit_data(common, selector_polys, constant_polys, sigma_polys, instances,
+                 row_gate, pi_targets, pi_gate_row, classes, rep_map,
+                 custom_generators) -> CircuitData:
+    """Commit [selectors | constants | sigmas] on their device and freeze
+    the witness-generator schedule: the gadget hints, every row's gate
+    generators, then the public-input hash generator.  `compile_circuit`
+    and `deserialize_prover_data` both end here."""
+    from ..ir.builder import Wire
+    from ..utils import timed_span
     cs_coeffs, cs_lde, cs_tree = commit_constants_sigmas(
-        selector_polys, constant_polys, sigma_vals, config)
+        selector_polys, constant_polys, sigma_polys, common.config)
 
-    # ---- witness generators ----
     with timed_span("generator schedule"):
-        generators = list(builder.custom_generators)
+        generators = list(custom_generators)
         for r, (g, consts) in enumerate(instances):
             generators.extend(g.generators(r, consts))
-    # public-input hash generator: fills the PI gate wires
-    pi_targets = list(builder.public_inputs)
 
     def _pi_fn(vals, row=pi_gate_row):
         h = poseidon.hash_no_pad_s([v % gl.P for v in vals])
@@ -231,18 +263,6 @@ def _compile_impl(builder, device) -> CircuitData:
     generators.append(LambdaGenerator(
         pi_targets, _pi_fn, outs=[Wire(pi_gate_row, i) for i in range(4)]))
 
-    common = CommonData(
-        config=config,
-        degree_bits=degree_bits,
-        gates=gates,
-        selector_info=sel,
-        num_constants_polys=num_const_polys,
-        k_is=k_is,
-        num_public_inputs=len(pi_targets),
-        num_partial_products=(nr + config.max_quotient_degree_factor - 1)
-        // config.max_quotient_degree_factor - 1,
-        chunk_size=config.max_quotient_degree_factor,
-    )
     gate_rows: dict = {}
     for r, gi in enumerate(row_gate):
         gate_rows.setdefault(gi, []).append(r)
@@ -251,11 +271,11 @@ def _compile_impl(builder, device) -> CircuitData:
         common=common,
         selector_polys=selector_polys,
         constant_polys=constant_polys,
-        sigma_polys=sigma_vals,
+        sigma_polys=sigma_polys,
         cs_coeffs=cs_coeffs,
         cs_lde=cs_lde,
         cs_tree=cs_tree,
-        # frozen flat map: one dict.get per lookup in the witness scheduler
+        # frozen flat map: one dict.get per lookup in the witness schedule
         rep_of=lambda t, _m=rep_map: _m.get(t, t),
         generators=generators,
         gate_rows=gate_rows,
@@ -264,7 +284,9 @@ def _compile_impl(builder, device) -> CircuitData:
         pi_targets=pi_targets,
         class_wires={rep: [m for m in members if isinstance(m, Wire)]
                      for rep, members in classes.items()},
+        classes=classes,
         pi_gate_row=pi_gate_row,
+        custom_generators=custom_generators,
     )
     verifier = VerifierData(common=common, cs_cap=cs_tree.cap_host())
     return CircuitData(prover=prover, verifier=verifier)

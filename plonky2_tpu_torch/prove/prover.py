@@ -3,7 +3,7 @@
 Counterpart of `plonky2_tpu/prove/prover.py` (`_make_kernels` and
 `prove`/`_prove_impl`, without the mesh).  Phases and placement:
 
-1. witness generation         host (dataflow scheduler + batched aux fill)
+1. witness generation         host (native tape + batched aux fill)
 2. wire LDE + Merkle cap      device: kernel K2 (n <= 2^13) or K3, then K1
                               under the tree
 3. permutation Z polys        device: plain torch, K2/K3 + K1 for the commit
@@ -33,6 +33,7 @@ from ..ntt.ntt import _bitrev_perm, coset_lde_rev, intt_from_rev
 from ..transcript import Challenger
 from ..utils import timed_span
 from ..witness import generate_witness
+from ..witness.tape import generate_witness_tape
 from .proof import OpeningSet, Proof
 
 
@@ -270,27 +271,42 @@ def prove(pd, inputs: dict) -> Proof:
 
 
 def witness_matrix(pd, inputs: dict):
-    """Run witness generation -> (wires [num_wires, n] numpy uint64, store)."""
+    """The prover's witness phase (the JAX prover's phase 1): the native
+    tape, one vectorized scatter, then every gate's batched aux fill ->
+    (wires [num_wires, n] numpy uint64, store)."""
+    common = pd.common
+    with timed_span("witness generation"):
+        store = generate_witness_tape(pd, inputs)
+    with timed_span("witness scatter to wire matrix"):
+        wires_host = store.scatter(common.config.num_wires, 1 << common.degree_bits)
+    with timed_span("witness aux fill (batched)"):
+        _aux_fill(pd, wires_host)
+    return wires_host, store
+
+
+def scheduler_witness_matrix(pd, inputs: dict):
+    """The same wire matrix through the dynamic scheduler and a scatter
+    loop: the reference the tape is held against (the prover never runs
+    it) -> (wires, store)."""
     from ..ir.builder import Wire
     common = pd.common
-    cfg = common.config
-    n = 1 << common.degree_bits
-    with timed_span("witness generation"):
-        store = generate_witness(pd, inputs)
-    with timed_span("witness scatter to wire matrix"):
-        wires_host = np.zeros((cfg.num_wires, n), dtype=np.uint64)
-        for rep, v in store._vals.items():
-            if isinstance(rep, Wire):
-                wires_host[rep.column, rep.row] = v
-            for w in pd.class_wires.get(rep, ()):
-                wires_host[w.column, w.row] = v
-    with timed_span("witness aux fill (batched)"):
-        for gi, gate in enumerate(common.gates):
-            if hasattr(gate, "aux_fill"):
-                rows = pd.gate_rows.get(gi)
-                if rows:
-                    gate.aux_fill(np.asarray(rows, dtype=np.int64), wires_host)
+    store = generate_witness(pd, inputs)
+    wires_host = np.zeros((common.config.num_wires, 1 << common.degree_bits),
+                          dtype=np.uint64)
+    for rep, v in store._vals.items():
+        if isinstance(rep, Wire):
+            wires_host[rep.column, rep.row] = v
+        for w in pd.class_wires.get(rep, ()):
+            wires_host[w.column, w.row] = v
+    _aux_fill(pd, wires_host)
     return wires_host, store
+
+
+def _aux_fill(pd, wires_host) -> None:
+    for gi, gate in enumerate(pd.common.gates):
+        rows = pd.gate_rows.get(gi)
+        if hasattr(gate, "aux_fill") and rows:
+            gate.aux_fill(np.asarray(rows, dtype=np.int64), wires_host)
 
 
 def _prove_impl(pd, inputs: dict) -> Proof:

@@ -2,9 +2,9 @@
 
 Host copy of `plonky2_tpu/serialization/buffer.py`: little-endian
 fixed-width integers, u32 length prefixes for lists and strings, Goldilocks
-elements as u64, extension elements as 2 u64s, digests as 4 u64s.  The
-JAX buffer's u8 and bool fields are left out: no format of the port uses
-them.
+elements as u64, extension elements as 2 u64s, digests as 4 u64s, and a
+u8 tag (prover data's targets).  The JAX buffer's bool fields are left
+out: no format of the port uses them.
 """
 
 from __future__ import annotations
@@ -26,6 +26,9 @@ class Buffer:
         return len(self._data) - self._pos
 
     # ---- writers ----
+
+    def write_u8(self, v: int) -> None:
+        self._data += struct.pack("<B", v)
 
     def write_u32(self, v: int) -> None:
         self._data += struct.pack("<I", v)
@@ -67,6 +70,9 @@ class Buffer:
         out = bytes(self._data[self._pos:self._pos + n])
         self._pos += n
         return out
+
+    def read_u8(self) -> int:
+        return struct.unpack("<B", self._take(1))[0]
 
     def read_u32(self) -> int:
         return struct.unpack("<I", self._take(4))[0]

@@ -13,11 +13,10 @@ from __future__ import annotations
 
 import re
 
-from ..field import gl
 from ..fri.fri import (FriConfig, FriInitialOpening, FriProof, FriQueryRound,
                        FriQueryStep)
 from ..ir.config import HASHER, CircuitConfig
-from ..prove.compile import CommonData, SelectorInfo, VerifierData
+from ..prove.compile import SelectorInfo, VerifierData, common_data
 from ..prove.proof import OpeningSet, Proof
 from .buffer import Buffer
 
@@ -234,17 +233,6 @@ def deserialize_verifier_data(data: bytes) -> VerifierData:
 
     gate_group = {gi: g for g, grp in enumerate(groups) for gi in grp}
     sel = SelectorInfo(groups=groups, unused=len(gates), gate_group=gate_group)
-    nr = config.num_routed_wires
-    common = CommonData(
-        config=config,
-        degree_bits=degree_bits,
-        gates=gates,
-        selector_info=sel,
-        num_constants_polys=num_constants_polys,
-        k_is=[pow(gl.GENERATOR, i, gl.P) for i in range(nr)],
-        num_public_inputs=num_public_inputs,
-        num_partial_products=(nr + config.max_quotient_degree_factor - 1)
-        // config.max_quotient_degree_factor - 1,
-        chunk_size=config.max_quotient_degree_factor,
-    )
+    common = common_data(config, degree_bits, gates, sel, num_constants_polys,
+                         num_public_inputs)
     return VerifierData(common=common, cs_cap=cs_cap)

@@ -6,6 +6,10 @@ scheduler: each generator keeps an unmet-dependency counter, a per-target
 waiter index wakes generators as values land, and a FIFO drains ready
 work.  Gates with non-routed helper wires fill them afterwards in one
 batched pass per gate type (`aux_fill`, see prove/prover.py).
+
+The prover runs the static tape (witness/tape.py), which lowers most
+generators to the opcode their `op` spec names; this scheduler is the
+semantic reference that the tape is held against.
 """
 
 from __future__ import annotations
@@ -28,12 +32,13 @@ class Generator:
 
 
 class LambdaGenerator(Generator):
-    __slots__ = ("deps", "outs", "fn")
+    __slots__ = ("deps", "outs", "fn", "op")
 
-    def __init__(self, deps, fn, outs=()):
+    def __init__(self, deps, fn, outs=(), op=None):
         self.deps = deps
         self.outs = list(outs)
         self.fn = fn          # fn(values: list[int]) -> list[(target, value)]
+        self.op = op          # optional tape opcode spec (witness/tape.py)
 
     def run(self, get):
         return self.fn([get(d) for d in self.deps])

@@ -27,8 +27,13 @@ CPU:
   at 2^9 rows (the CPU tests in tests/test_torch_ecdsa.py).
 
 For each: degree_bits, num_gates, the constants/sigmas cap, the public
-inputs, the proof length, the proof sha256 and the sha256 of the
-serialized verifier key.  `config4` and `small_ecc` also carry
+inputs, the proof length, the proof sha256, the sha256 of the
+serialized verifier key, `prover_data_sha256` (the sha256 of
+`serialize_prover_data(data.prover)`, the circuit cache's bytes) and
+`wire_matrix_sha256` (the sha256 of the witness's [num_wires, n] uint64
+wire matrix, little-endian, row by row, as the JAX prover's phase 1
+computes it: `generate_witness_tape`, `scatter`, then every gate's
+batched `aux_fill`).  `config4` and `small_ecc` also carry
 `graph_sha256` (`graph_digest`): a digest of the builder's graph that a
 test can recompute from the port's builder without a build.  The whole
 run takes about 50 minutes on the CPU: the JAX package proves configs 1,
@@ -38,10 +43,12 @@ run takes about 50 minutes on the CPU: the JAX package proves configs 1,
     python scripts/make_torch_port_vectors.py --write   # rewrite the fixture
 
 `--only a,b` computes just the named entries and keeps the others from the
-fixture.  `--build-only a,b` builds the named entries without proving:
-their build fields must equal the fixture's, and their proof fields are
-kept from it (this adds a field that needs only the build, such as the
-verifier-key digest, without the long proves).
+fixture.  `--build-only a,b` builds the named entries and runs their
+witness without proving: every field it recomputes that the fixture
+already has must equal the fixture's, and their proof fields are kept
+from it (this adds a field that needs only the build and the witness,
+such as the verifier-key, prover-data and wire-matrix digests, without
+the long proves).
 """
 from __future__ import annotations
 
@@ -214,12 +221,36 @@ def graph_digest(builder) -> str:
     return hashlib.sha256(raw.encode()).hexdigest()
 
 
-BUILD_FIELDS = ("degree_bits", "num_gates", "cs_cap", "verifier_data_sha256")
 GRAPH_DIGESTED = ("config4", "small_ecc")
 
 
+def wire_matrix(pd, inputs):
+    """The JAX prover's phase 1 (`plonky2_tpu/prove/prover.py:529-556`) on
+    the native tape: [num_wires, n] uint64."""
+    import numpy as np
+    from plonky2_tpu.witness.tape import generate_witness_tape
+    common = pd.common
+    store = generate_witness_tape(pd, inputs)
+    if store is None:
+        raise SystemExit("the JAX package's native witness library did not build")
+    wires = store.scatter(common.config.num_wires, 1 << common.degree_bits)
+    for gi, gate in enumerate(common.gates):
+        rows = pd.gate_rows.get(gi)
+        if hasattr(gate, "aux_fill") and rows:
+            gate.aux_fill(np.asarray(rows, dtype=np.int64), wires)
+    return wires
+
+
+def wire_matrix_sha256(wires) -> str:
+    """sha256 of a [num_wires, n] wire matrix: its uint64 values,
+    little-endian, row by row."""
+    import numpy as np
+    return hashlib.sha256(np.ascontiguousarray(wires, dtype="<u8").tobytes()).hexdigest()
+
+
 def _record(builder, inputs, prove: bool = True, graph: bool = False) -> dict:
-    from plonky2_tpu.serialization import serialize_proof, serialize_verifier_data
+    from plonky2_tpu.serialization import (serialize_proof, serialize_prover_data,
+                                           serialize_verifier_data)
     num_gates = builder.num_gates()
     digest = graph_digest(builder) if graph else None
     data = builder.build()
@@ -229,6 +260,9 @@ def _record(builder, inputs, prove: bool = True, graph: bool = False) -> dict:
         "cs_cap": [[int(x) for x in d] for d in data.verifier.cs_cap],
         "verifier_data_sha256": hashlib.sha256(
             serialize_verifier_data(data.verifier)).hexdigest(),
+        "prover_data_sha256": hashlib.sha256(
+            serialize_prover_data(data.prover)).hexdigest(),
+        "wire_matrix_sha256": wire_matrix_sha256(wire_matrix(data.prover, inputs)),
     }
     if digest is not None:
         out["graph_sha256"] = digest
@@ -283,8 +317,8 @@ def compute_vectors(only=None, build_only=()) -> dict:
         if name in build_only:
             rec = _record(b, inputs, prove=False, graph=name in GRAPH_DIGESTED)
             old = out[name]
-            for k in BUILD_FIELDS[:3]:
-                if rec[k] != old[k]:
+            for k in rec:
+                if k in old and rec[k] != old[k]:
                     raise SystemExit(f"{name}: {k} differs from the fixture")
             out[name] = {**old, **rec}
         else:
