@@ -1,14 +1,15 @@
 """Smoke run of the PyTorch/CUDA port (`plonky2_tpu_torch`) on one GPU.
 
-Drives the port's four main paths — build, save and load, witness, prove
-and serialize the config-1 circuit (Poseidon chain, 2^12 rows), the
-config-2 circuit (u32 mul/add/xor/sub/compare, 2^13 rows) and the
-config-3 circuit (51 chained depth-32 SMT process proofs, 2^14 rows), all
-under standard_recursion_config, and the config-4 circuit (one secp256k1
-ECDSA verify, 55,421 gates, 2^16 rows, under standard_ecc_config: 136
-wires) — on the card, after checking each hand-written kernel against its
-plain torch version there, and verifies every proof with the port's host
-verifier:
+Drives the port's main paths — build, save and load, witness, prove and
+serialize the config-1 circuit (Poseidon chain, 2^12 rows), the config-2
+circuit (u32 mul/add/xor/sub/compare, 2^13 rows) and the config-3
+circuit (51 chained depth-32 SMT process proofs, 2^14 rows), all under
+standard_recursion_config, the config-4 circuit (one secp256k1 ECDSA
+verify, 55,421 gates, 2^16 rows, under standard_ecc_config: 136 wires)
+and config 5 (four zkDSA proofs of a 2^2-row circuit and the 2^13-row
+circuit that verifies them in-circuit, both under test_config) — on the
+card, after checking each hand-written kernel against its plain torch
+version there, and verifies every proof with the port's host verifier:
 
   1. device      name, power limit, SM clock; fails without CUDA
   2. build       nvcc builds plonky2_tpu_torch/csrc/*.cu, one process per
@@ -37,17 +38,26 @@ verifier:
                  the built circuit saved to bytes (serialize_prover_data:
                  the JAX fixture's sha256) and loaded on the card
                  (deserialize_prover_data: its commit launches K1 and K2-rev
-                 or K3, its cs_cap is the fixture's), proved again from the
-                 loaded circuit to the same bytes; the witness tape's wire
-                 matrix equals the dynamic scheduler's and the fixture's
-                 sha256
+                 or K3, its cs_cap is the fixture's), proved twice more from
+                 the loaded circuit (the second time warm) to the same
+                 bytes; the witness tape's wire matrix equals the dynamic
+                 scheduler's and the fixture's sha256; the builder's graph
+                 digest equals the fixture's where the fixture has one
   9. config 2    the same
  10. config 3    the same
- 11. config 4    the same; then K3 against the plain LDE at its
+ 11. config 4    the same; then K3 against the plain LDE at its wires,
                  constants/sigmas and Z/partial-products commit shapes, read
                  from its built common data
+ 12. config 5    `bench.circuits.aggregation_steps`, the code of
+                 `bench.build_aggregation(4)` up to the outer build: the
+                 zkDSA circuit built, its four proofs (the JAX seed's keys
+                 and messages) made and verified, each equal to the
+                 fixture's bytes, and the outer circuit traced; K2-rev
+                 against the plain LDE at the inner circuit's three commit
+                 shapes (n = 4, read from its common data); then the steps
+                 of 8 for the outer circuit of 2^13 rows
 
-Every proof phase (7-11) ends with a verify step: the port's verifier
+Every proof phase (7-12) ends with a verify step: the port's verifier
 accepts the card's proof and rejects it with one public input (the wires
 cap where there is none) or one opening changed, and the verifier key's
 bytes have the fixture's sha256 and read back to the same bytes.
@@ -55,7 +65,8 @@ bytes have the fixture's sha256 and read back to the same bytes.
 All checks are exact: field arithmetic has no rounding, so every tolerance
 is 0.  Kernel inputs cover all of [0, p), edge values included.  Kernel
 launch counts are set to 0 just before each main path (a configuration's
-build and first prove, and its load from bytes) and read just after it.
+build and first prove, its load from bytes, and config 5's inner circuit,
+its four proofs and the outer trace) and read just after it.
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its 32-bit integer multiplies
 over 64 per clock per SM x 132 SMs x the card's maximum SM clock.  Each
@@ -589,42 +600,62 @@ def verify_step(tag: str, data, proof, want: dict) -> None:
         f"{len(vk)} bytes, sha256 {digest} equals the fixture and round-trips")
 
 
-def phase_config(tag: str, device, build, fixture_key: str):
+def reset_launches():
+    import torch
+    from plonky2_tpu_torch.hashes import cuda_poseidon
+    from plonky2_tpu_torch.ntt import cuda_lde, cuda_lde_tiled
+    torch.cuda.synchronize()
+    cuda_poseidon.LAUNCHES = cuda_lde.LAUNCHES = cuda_lde.LAUNCHES_NAT = 0
+    cuda_lde_tiled.LAUNCHES = 0
+
+
+def read_launches():
+    from plonky2_tpu_torch.hashes import cuda_poseidon
+    from plonky2_tpu_torch.ntt import cuda_lde, cuda_lde_tiled
+    return {"K1": cuda_poseidon.LAUNCHES, "K2-rev": cuda_lde.LAUNCHES,
+            "K2-nat": cuda_lde.LAUNCHES_NAT, "K3": cuda_lde_tiled.LAUNCHES}
+
+
+def phase_config(tag: str, device, build, want: dict):
     """Build, witness and prove one configuration on the card; save the
     built circuit to bytes and load it back on the card (the circuit cache);
-    prove once from the built circuit and once from the loaded one.  The
-    prover data's bytes, the loaded circuit's cs_cap, both proofs' bytes,
-    the public inputs and the shape must equal the JAX fixture; the tape's
-    wire matrix must equal the dynamic scheduler's and the fixture's digest;
-    then the verify step.  -> ({path: kernel launches}: the build and first
-    prove, and the load, each counted from 0 just before it and read just
-    after; the circuit's common data)."""
+    prove once from the built circuit and twice from the loaded one (the
+    second time warm: its tape built).  The prover data's bytes, the loaded
+    circuit's cs_cap, every proof's bytes, the public inputs and the shape
+    must equal the JAX fixture entry `want` (and the builder's graph
+    digest, taken before the build, where `want` has one); the tape's wire
+    matrix must equal the dynamic scheduler's and the fixture's digest;
+    then the verify step.  -> ({path: kernel launches}: the build and
+    first prove, and the load, each counted from 0 just before it and read
+    just after; the circuit's common data)."""
     import numpy as np
     import torch
     from plonky2_tpu_torch import utils
-    from plonky2_tpu_torch.hashes import cuda_poseidon
-    from plonky2_tpu_torch.ntt import cuda_lde, cuda_lde_tiled
+    from plonky2_tpu_torch.ir.digest import graph_digest
     from plonky2_tpu_torch.prove.prover import scheduler_witness_matrix, witness_matrix
     from plonky2_tpu_torch.serialization import (deserialize_prover_data, serialize_proof,
                                                  serialize_prover_data)
-    want = fixture(fixture_key)
-
-    def reset_launches():
-        torch.cuda.synchronize()
-        cuda_poseidon.LAUNCHES = cuda_lde.LAUNCHES = cuda_lde.LAUNCHES_NAT = 0
-        cuda_lde_tiled.LAUNCHES = 0
-
-    def read_launches():
-        return {"K1": cuda_poseidon.LAUNCHES, "K2-rev": cuda_lde.LAUNCHES,
-                "K2-nat": cuda_lde.LAUNCHES_NAT, "K3": cuda_lde_tiled.LAUNCHES}
 
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
     b, inputs, meta = build()
+    trace_s = time.perf_counter() - t0
     num_gates = b.num_gates()
+    if "graph_sha256" in want:
+        # the digest's own time is left out of the build wall
+        t1 = time.perf_counter()
+        digest = graph_digest(b)
+        t0 += time.perf_counter() - t1
+        if digest != want["graph_sha256"]:
+            raise AssertionError(f"{tag} graph sha256 {digest} != JAX fixture "
+                                 f"{want['graph_sha256']}")
+        log(f"[{tag}] builder graph ({num_gates} gates) sha256 {digest} equals the JAX "
+            f"fixture")
+    t1 = time.perf_counter()
     data = b.build(device=device)
     torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t1
     build_s = time.perf_counter() - t0
     utils.profiling_enable()
     t0 = time.perf_counter()
@@ -673,13 +704,14 @@ def phase_config(tag: str, device, build, fixture_key: str):
         + ", ".join(f"{k} {v}" for k, v in launches[f"{tag}-load"].items()) + f" ({CARD})")
 
     utils.profiling_enable()
-    t0 = time.perf_counter()
-    again = serialize_proof(loaded.prove(inputs))
-    prove_s.append(time.perf_counter() - t0)
-    spans.append(utils.last_tree().lines())
+    for kind in ("loaded", "loaded, warm"):
+        t0 = time.perf_counter()
+        again = serialize_proof(loaded.prove(inputs))
+        prove_s.append(time.perf_counter() - t0)
+        spans.append(utils.last_tree().lines())
+        if hashlib.sha256(again).hexdigest() != digest:
+            raise AssertionError(f"{tag} prove from the {kind} circuit gave other bytes")
     utils.profiling_disable()
-    if hashlib.sha256(again).hexdigest() != digest:
-        raise AssertionError(f"{tag} prove from the loaded circuit gave other bytes")
     peak = torch.cuda.max_memory_allocated()
 
     # the witness through the tape (as the prover runs it, the tape built)
@@ -700,17 +732,19 @@ def phase_config(tag: str, device, build, fixture_key: str):
 
     log(f"[{tag}] {meta['name']} 2^{data.common.degree_bits} ({num_gates} gates): "
         f"cs_cap, public inputs, {len(raw)} bytes and sha256 {digest} equal the JAX "
-        f"fixture, proved from the built and from the loaded circuit")
+        f"fixture, proved from the built and (twice) from the loaded circuit")
     log(f"[{tag}] wire matrix {wires.shape[0]} x {wires.shape[1]}: the tape's equals the "
         f"dynamic scheduler's, sha256 {wires_digest} equals the JAX fixture")
     log(f"[{tag}] launches on the main path (build + first prove): "
         + ", ".join(f"{k} {v}" for k, v in launches[tag].items()) + f" ({CARD})")
-    log(f"[{tag}] build {build_s:.3f} s; load {load_s:.3f} s; witness through the tape "
-        f"{tape_s:.3f} s, through the scheduler {scheduler_s:.3f} s; prove (built, loaded) "
-        + ", ".join(f"{t:.3f} s" for t in prove_s)
+    kinds = ("built", "loaded", "loaded, warm")
+    log(f"[{tag}] build {build_s:.3f} s ({trace_s:.3f} s before and {compile_s:.3f} s in "
+        f"`build()`); load {load_s:.3f} s; witness through the tape "
+        f"{tape_s:.3f} s, through the scheduler {scheduler_s:.3f} s; prove "
+        f"({', '.join(kinds)}) " + ", ".join(f"{t:.3f} s" for t in prove_s)
         + f"; peak device memory {peak / 2**20:.1f} MiB ({CARD})")
     for i, lines in enumerate(spans):
-        log(f"[{tag}] phase spans, prove {i + 1} ({('built', 'loaded')[i]} circuit; "
+        log(f"[{tag}] phase spans, prove {i + 1} ({kinds[i]} circuit; "
             f"synchronized; {CARD}):")
         for line in lines:
             log("  " + line)
@@ -718,26 +752,87 @@ def phase_config(tag: str, device, build, fixture_key: str):
     return launches, data.common
 
 
-def phase_k3_commits(device, tag, common):
-    """Hold K3 at the shapes of a circuit's other two commits, as its built
-    common data gives them: [selectors | constants | sigmas] at build, and
-    the Z polys with the partial products in each prove."""
+def phase_config5_inner(device):
+    """Config 5's work before its outer build, by the entry point's own
+    code (`bench.circuits.aggregation_steps`, which `build_aggregation(4)`'s
+    make() runs): the zkDSA circuit built under test_config, its four
+    proofs (keys and messages from the JAX package's seed and order) made
+    and verified, and the outer circuit traced.  Each proof must equal the
+    fixture's bytes; then the verify step on the first.  Its launches are
+    their own path, `config5-inner`, counted from 0 just before it and read
+    just after.  -> ({"config5-inner": launches}, the inner circuit's common
+    data, the outer builder, its inputs with the four proofs bound)."""
+    import random
+    import torch
+    from plonky2_tpu_torch import utils, zkaa
+    from plonky2_tpu_torch.bench.circuits import AGGREGATION_SEED, aggregation_steps
+    from plonky2_tpu_torch.serialization import serialize_proof
+    want = fixture("config5")["inner"]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    utils.profiling_enable()
+    inner, proofs, b, pts = aggregation_steps(random.Random(AGGREGATION_SEED), 4, device)
+    utils.profiling_disable()
+    launches = {"config5-inner": read_launches()}
+    tree = utils.last_tree()
+    peak = torch.cuda.max_memory_allocated()
+    if inner.data.common.degree_bits != want["degree_bits"]:
+        raise AssertionError(f"config5 inner circuit is 2^{inner.data.common.degree_bits} "
+                             f"rows, the fixture's 2^{want['degree_bits']}")
+    for i, proof in enumerate(proofs):
+        raw = serialize_proof(proof)
+        digest = hashlib.sha256(raw).hexdigest()
+        if (len(raw), digest) != (want["proof_len"][i], want["proof_sha256"][i]):
+            raise AssertionError(f"config5 inner proof {i} ({len(raw)} bytes, sha256 "
+                                 f"{digest}) differs from the JAX fixture")
+        if list(proof.public_inputs) != want["public_inputs"][i]:
+            raise AssertionError(f"config5 inner proof {i}: public inputs differ from "
+                                 f"the JAX fixture")
+        log(f"[config5-inner] proof {i}: {len(raw)} bytes, sha256 {digest} equals the JAX "
+            f"fixture; accepted by the verifier")
+    log(f"[config5-inner] zkDSA circuit 2^{inner.data.common.degree_bits} "
+        f"({inner.data.common.config.num_wires} wires), four proofs and the outer "
+        f"circuit's trace ({b.num_gates()} gates): {tree.elapsed:.3f} s; peak device memory "
+        f"{peak / 2**20:.1f} MiB ({CARD})")
+    log(f"[config5-inner] launches on the path: "
+        + ", ".join(f"{k} {v}" for k, v in launches["config5-inner"].items()) + f" ({CARD})")
+    log(f"[config5-inner] steps (synchronized; {CARD}):")
+    for step in tree.children:
+        log(f"  {step.elapsed * 1e3:9.2f}ms {step.name}")
+    verify_step("config5-inner", inner.data, proofs[0], want)
+    return launches, inner.data.common, b, zkaa.aggregation_witness(pts, proofs)
+
+
+def phase_commits(device, tag, common):
+    """Hold the LDE kernel that the commit path's dispatcher
+    (`ntt.lde_from_values_rev_auto`) picks for a circuit, K2-rev up to 2^13
+    rows and K3 above, at the shapes of its three commits, as its built
+    common data gives them: the wires and the Z polys with the partial
+    products in each prove, and [selectors | constants | sigmas] at build.
+    -> (the kernel's key, {(rows, n, rate): (max_abs_err, kernel ms, plain
+    ms)})."""
     import numpy as np
     import torch
     from plonky2_tpu_torch import ntt
-    from plonky2_tpu_torch.ntt import cuda_lde_tiled
+    from plonky2_tpu_torch.ntt import cuda_lde, cuda_lde_tiled
     n = 1 << common.degree_bits
+    rate_bits = common.config.fri.rate_bits
+    if cuda_lde.supported(n, rate_bits):
+        key, kernel = "K2-rev", cuda_lde.lde_from_values_rev_cuda
+    else:
+        key, kernel = "K3", cuda_lde_tiled.lde_from_values_tiled_rev_cuda
+    wires_rows = common.config.num_wires
     cs_rows = (len(common.selector_info.groups) + common.num_constants_polys
                + common.config.num_routed_wires)
     zs_rows = common.config.num_challenges * (1 + common.num_partial_products)
-    log(f"[K3] {tag}'s constants/sigmas commit [{cs_rows}, {n}] and Z/partial-products "
-        f"commit [{zs_rows}, {n}], from its common data")
-    out = _lde_check("K3", device, np.random.RandomState(4),
-                     cuda_lde_tiled.lde_from_values_tiled_rev_cuda, ntt.lde_from_values_rev,
-                     ((cs_rows, n), (zs_rows, n)), common.config.fri.rate_bits,
+    log(f"[{key}] {tag}'s wires commit [{wires_rows}, {n}], constants/sigmas commit "
+        f"[{cs_rows}, {n}] and Z/partial-products commit [{zs_rows}, {n}], from its common "
+        f"data")
+    out = _lde_check(key, device, np.random.RandomState(4), kernel, ntt.lde_from_values_rev,
+                     ((wires_rows, n), (cs_rows, n), (zs_rows, n)), rate_bits,
                      plain_brackets=2)
     torch.cuda.empty_cache()
-    return out
+    return key, out
 
 
 def main() -> int:
@@ -759,12 +854,26 @@ def main() -> int:
                         ("config2", lambda: build_u32_mix(13)),
                         ("config3", lambda: build_smt_process(14)),
                         ("config4", lambda: build_ecdsa(1))):
-        launches, common[path] = phase_config(path, device, build, path)
+        launches, common[path] = phase_config(path, device, build, fixture(path))
         paths.update(launches)
-    k3.update(phase_k3_commits(device, "config4", common["config4"]))
+    held = {"K2-rev": k2_rev, "K3": k3}
+    key, out = phase_commits(device, "config4", common["config4"])
+    held[key].update(out)
+    # config 5: the inner circuit, its proofs and the outer trace are one
+    # path; the outer build and first prove, and its load, are the others
+    launches, common["config5-inner"], b5, inputs5 = phase_config5_inner(device)
+    paths.update(launches)
+    key, out = phase_commits(device, "config5-inner", common["config5-inner"])
+    held[key].update(out)
+    launches, common["config5"] = phase_config(
+        "config5", device, lambda: (b5, inputs5, {"name": "aggregation_4"}),
+        fixture("config5")["outer"])
+    paths.update(launches)
     required = {"config1": ("K1", "K2-rev"), "config2": ("K1", "K2-rev"),
-                "config3": ("K1", "K3"), "config4": ("K1", "K3")}
+                "config3": ("K1", "K3"), "config4": ("K1", "K3"),
+                "config5": ("K1", "K2-rev")}
     required.update({f"{path}-load": kernels for path, kernels in list(required.items())})
+    required["config5-inner"] = ("K1", "K2-rev")
     for path, kernels in required.items():
         for k in kernels:
             if paths[path][k] <= 0:
@@ -782,10 +891,14 @@ def main() -> int:
          "plonky2_tpu_torch/csrc/lde.cu", "plonky2_tpu/ntt/pallas_lde.py:316",
          k2_rev[(135, 4096, 3)], lde_work(135, 4096, 3, k2_table_words(12, 3)),
          ("config1", "config1-load")),
-        ("K2-rev", "lde_from_values_rev [135, 8192] rate 3 (config 2 wires)",
+        ("K2-rev", "lde_from_values_rev [135, 8192] rate 3 (config 2 and 5 wires)",
          "plonky2_tpu_torch/csrc/lde.cu", "plonky2_tpu/ntt/pallas_lde.py:316",
          k2_rev[(135, 1 << 13, 3)], lde_work(135, 1 << 13, 3, k2_table_words(13, 3)),
-         ("config2", "config2-load")),
+         ("config2", "config2-load", "config5", "config5-load")),
+        ("K2-rev", "lde_from_values_rev [135, 4] rate 3 (config 5 inner wires)",
+         "plonky2_tpu_torch/csrc/lde.cu", "plonky2_tpu/ntt/pallas_lde.py:316",
+         k2_rev[(135, 4, 3)], lde_work(135, 4, 3, k2_table_words(2, 3)),
+         ("config5-inner",)),
         ("K2-nat", "lde_from_values [135, 4096] rate 3 (on no prove path)",
          "plonky2_tpu_torch/csrc/lde.cu", "plonky2_tpu/ntt/pallas_lde.py:303",
          k2_nat[(135, 4096, 3)], lde_work(135, 4096, 3, k2_table_words(12, 3)), None),

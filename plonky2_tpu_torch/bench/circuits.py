@@ -1,12 +1,13 @@
-"""Benchmark circuits (configs 1, 2, 3 and 4 of BASELINE.md).
+"""Benchmark circuits (configs 1-5 of BASELINE.md).
 
 Counterpart of `build_poseidon_chain`, `build_u32_mix`, `build_smt_process`
 and `build_ecdsa` in `plonky2_tpu/bench/circuits.py`.  Configs 1-3 size
 themselves: each repeats its unit until `num_gates()` reaches the target,
 and the compiler pads to the next power of two.  Config 4 has its natural
 size (one signature: 55,421 gates, 2^16 rows); `build_small_ecc` is a
-2^9-row piece of it for a CPU prove.  Config 5 (aggregation) needs the
-recursion gates, which are not ported yet.
+2^9-row piece of it for a CPU prove.  Config 5 (`build_aggregation`)
+proves four zkDSA signatures and builds the 2^13-row circuit that
+verifies all four in-circuit.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import random
 
 from ..field import gl
 from ..ir import CircuitBuilder, CircuitConfig
+from ..utils.device import DEFAULT_DEVICE
+from ..utils.timing import timed_span
 
 
 def _target_rows(degree_bits: int, margin: int) -> int:
@@ -194,3 +197,65 @@ def build_small_ecc():
         set_biguint_target(inputs, tgt.y.value, pt.y)
     set_biguint_target(inputs, k.value, rng.randrange(secp.N))
     return b, inputs, {"name": "small_ecc"}
+
+
+AGGREGATION_SEED = 0xA66BE7C4
+
+
+def aggregation_draws(rng, num_proofs: int) -> list:
+    """(private key, message) of each inner proof, drawn from `rng` in the
+    JAX package's order: each proof's key, then its message."""
+    draws = []
+    for _ in range(num_proofs):
+        key = tuple(rng.randrange(gl.P) for _ in range(4))
+        msg = tuple(rng.randrange(gl.P) for _ in range(4))
+        draws.append((key, msg))
+    return draws
+
+
+def aggregation_steps(rng, num_proofs: int = 4, device=DEFAULT_DEVICE):
+    """`build_aggregation`'s make() up to the outer build: the zkDSA
+    circuit under test_config built on `device`; for each proof a key and
+    a message drawn from `rng`, the proof made and verified; then the outer
+    circuit that verifies them all traced.  Each step is a phase span
+    (`utils.timed_span`, recorded while profiling is on).  -> (the inner
+    circuit, its proofs, the outer builder, its proof targets)."""
+    from .. import zkaa
+    from ..zkdsa import make_simple_signature_circuit
+
+    config = CircuitConfig.test_config()
+    with timed_span(f"aggregation of {num_proofs}: before the outer build"):
+        with timed_span("inner circuit build"):
+            inner = make_simple_signature_circuit(config, device)
+        proofs = []
+        for i, (key, msg) in enumerate(aggregation_draws(rng, num_proofs)):
+            with timed_span(f"inner prove {i}"):
+                sp = inner.prove(key, msg)
+            with timed_span(f"inner verify {i}"):
+                inner.verify(sp)
+            proofs.append(sp.proof)
+        with timed_span("outer circuit trace"):
+            b, pts = zkaa.aggregation_builder(inner.data.verifier, num_proofs, config)
+    return inner, proofs, b, pts
+
+
+def build_aggregation(num_proofs: int = 4, device=DEFAULT_DEVICE):
+    """Config 5: recursive aggregation of `num_proofs` zkDSA proofs (the
+    inner circuit and the outer one both under test_config; the outer
+    circuit of four proofs has 2^13 rows).
+
+    Returns (make, meta) where make() -> (AggregationCircuit, inner_proofs);
+    every inner proof is verified before it is aggregated.  As in the JAX
+    package, the generator is seeded once, so a second make() draws new
+    keys."""
+    from .. import zkaa
+
+    rng = random.Random(AGGREGATION_SEED)
+
+    def make():
+        inner, proofs, b, pts = aggregation_steps(rng, num_proofs, device)
+        agg = zkaa.AggregationCircuit(data=b.build(device=device), proof_targets=pts,
+                                      inner_verifier=inner.data.verifier)
+        return agg, proofs
+
+    return make, {"name": f"aggregation_{num_proofs}", "num_proofs": num_proofs}

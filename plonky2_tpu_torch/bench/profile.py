@@ -1,8 +1,9 @@
 """Device profile of one warm prove on the card, with `torch.profiler`.
 
 Builds config 1 (`build_poseidon_chain(12)`), config 2 (`build_u32_mix(13)`),
-config 3 (`build_smt_process(14)`) or config 4 (`build_ecdsa(1)`) on the
-card, proves once to warm up, then profiles one more prove (CPU and CUDA
+config 3 (`build_smt_process(14)`), config 4 (`build_ecdsa(1)`) or config 5
+(`build_aggregation(4)`: the four inner proofs, then the outer circuit,
+which is the one profiled) on the card, proves once to warm up, then profiles one more prove (CPU and CUDA
 activities) and prints: the prove's wall time, the number of device
 operations, the device's busy time (the union of the device operations'
 intervals) and its share of the wall, the same share once the host witness
@@ -41,9 +42,10 @@ def _busy_us(intervals) -> float:
 
 def main() -> int:
     from ..prove.prover import witness_matrix
-    from . import build_ecdsa, build_poseidon_chain, build_smt_process, build_u32_mix
+    from . import (build_aggregation, build_ecdsa, build_poseidon_chain,
+                   build_smt_process, build_u32_mix)
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--config", type=int, choices=(1, 2, 3, 4), default=3)
+    parser.add_argument("--config", type=int, choices=(1, 2, 3, 4, 5), default=3)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("CUDA is not available: the profile needs a GPU")
@@ -54,8 +56,13 @@ def main() -> int:
 
     build = {1: lambda: build_poseidon_chain(12), 2: lambda: build_u32_mix(13),
              3: lambda: build_smt_process(14), 4: lambda: build_ecdsa(1)}
-    b, inputs, meta = build[args.config]()
-    data = b.build(device="cuda")
+    if args.config == 5:
+        make, meta = build_aggregation(4)
+        agg, proofs = make()
+        data, inputs = agg.data, agg.witness(proofs)
+    else:
+        b, inputs, meta = build[args.config]()
+        data = b.build(device="cuda")
     data.prove(inputs)
     torch.cuda.synchronize()
 

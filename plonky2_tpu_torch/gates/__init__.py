@@ -9,3 +9,7 @@ from .comparison import ComparisonGate, U32SubtractionGate  # noqa: F401
 from .random_access import RandomAccessGate  # noqa: F401
 from .u32_interleave import (U32InterleaveGate,  # noqa: F401
                              UninterleaveToB32Gate, UninterleaveToU32Gate)
+from .exponentiation import ExponentiationGate  # noqa: F401
+from .extension import (ArithmeticExtensionGate, MulExtensionGate,  # noqa: F401
+                        ReducingExtensionGate, ReducingGate)
+from .coset_interpolation import CosetInterpolationGate  # noqa: F401

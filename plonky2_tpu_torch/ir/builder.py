@@ -7,12 +7,12 @@ one union-find.  `build(device=...)` lowers everything to tensors
 oracle) on that device, the card unless the caller asks for the CPU, plus
 host tables for witness routing.
 
-The port carries the arithmetic, constant, public-input, noop, Poseidon,
-base-sum, comparison, random-access and u32 gates (the u32, biguint,
-nonnative, curve and ECDSA builder methods come from `gadgets/`).  Builder
-methods that place any other gate (exponentiation, the extension-field
-gates, coset interpolation, lookups) raise NotImplementedError naming the
-gate.
+The port carries every gate of the JAX package but the lookup gates and
+Poseidon2: arithmetic, constant, public-input, noop, Poseidon, base-sum,
+comparison, random-access, u32, exponentiation, the GF(p^2) gates and
+coset interpolation (the u32, biguint, nonnative, curve and ECDSA builder
+methods come from `gadgets/`).  The lookup methods raise
+NotImplementedError naming the gate.
 """
 
 from __future__ import annotations
@@ -20,8 +20,10 @@ from __future__ import annotations
 from collections import namedtuple
 
 from ..field import gl
-from ..gates import (ArithmeticGate, BaseSumGate, ComparisonGate, ConstantGate,
-                     PoseidonGate, RandomAccessGate)
+from ..gates import (ArithmeticExtensionGate, ArithmeticGate, BaseSumGate,
+                     ComparisonGate, ConstantGate, CosetInterpolationGate,
+                     ExponentiationGate, MulExtensionGate, PoseidonGate,
+                     RandomAccessGate, ReducingExtensionGate, ReducingGate)
 from ..hashes import poseidon
 from ..utils.device import DEFAULT_DEVICE
 from ..witness import NamedGenerator
@@ -263,40 +265,23 @@ class CircuitBuilder:
         self.connect(out, Wire(row, ws["claimed"]))
         return out
 
-    # ---------------- gates not ported yet ----------------
-
     def exp_from_bits(self, base, bits: list):
-        _not_ported("ExponentiationGate")
+        """base ^ sum(bits[i] * 2^i) through one ExponentiationGate (bits
+        must be boolean; the gate re-checks them)."""
+        gate = ExponentiationGate(len(bits))
+        row = self.add_gate(gate, [])
+        self.connect(base, Wire(row, gate.WIRE_BASE))
+        for i, b in enumerate(bits):
+            self.connect(b, Wire(row, gate.wire_bit(i)))
+        out = self.add_virtual_target()
+        self.connect(out, Wire(row, gate.wire_output))
+        return out
 
     def exp_u64(self, base, exponent, num_bits: int = 64):
-        _not_ported("ExponentiationGate")
+        """base ^ exponent for a target exponent of known bit width."""
+        return self.exp_from_bits(base, self.split_le(exponent, num_bits))
 
-    def arithmetic_extension(self, c0: int, c1: int, m0, m1, addend):
-        _not_ported("ArithmeticExtensionGate")
-
-    def mul_extension(self, a, b):
-        _not_ported("MulExtensionGate")
-
-    def add_extension(self, a, b):
-        _not_ported("ArithmeticExtensionGate")
-
-    def sub_extension(self, a, b):
-        _not_ported("ArithmeticExtensionGate")
-
-    def mul_add_extension(self, a, b, c):
-        _not_ported("ArithmeticExtensionGate")
-
-    def scalar_mul_ext(self, s: int, a):
-        _not_ported("ArithmeticExtensionGate")
-
-    def reduce_with_powers_ext(self, alpha, terms: list):
-        _not_ported("ReducingGate")
-
-    def reduce_with_powers_ext_circuit(self, alpha, terms: list):
-        _not_ported("ReducingExtensionGate")
-
-    def interpolate_coset(self, subgroup_bits: int, shift, values: list, z):
-        _not_ported("CosetInterpolationGate")
+    # ---------------- lookups (not ported yet) ----------------
 
     def add_lookup_table(self, pairs: list) -> int:
         _not_ported("LookupTableGate")
@@ -304,7 +289,9 @@ class CircuitBuilder:
     def lookup(self, x, table_id: int):
         _not_ported("LookupGate")
 
-    # ---------------- extension targets (no gate of their own) ----------
+    # ---------------- extension-field ops (GF(p^2), field/ext.py) -------
+    # An extension target is a (c0, c1) tuple of base targets (plonky2's
+    # ExtensionTarget).
 
     def add_virtual_extension_target(self):
         return (self.add_virtual_target(), self.add_virtual_target())
@@ -322,6 +309,108 @@ class CircuitBuilder:
     def connect_extension(self, a, b):
         self.connect(a[0], b[0])
         self.connect(a[1], b[1])
+
+    def arithmetic_extension(self, c0: int, c1: int, m0, m1, addend):
+        """c0*m0*m1 + c1*addend over GF(p^2); one ArithmeticExtensionGate
+        slot (constants per row, packed like the base `arithmetic`)."""
+        c0, c1 = c0 % gl.P, c1 % gl.P
+        gate = ArithmeticExtensionGate.from_config(self.config)
+        key = (gate.key(), c0, c1)
+        row, slot = self._claim_slot(key, gate, [c0, c1], gate.num_ops)
+        ws = gate.wires_op(slot)
+        for name, t in (("m0", m0), ("m1", m1), ("addend", addend)):
+            self.connect(t[0], Wire(row, ws[name]))
+            self.connect(t[1], Wire(row, ws[name] + 1))
+        out = self.add_virtual_extension_target()
+        self.connect(out[0], Wire(row, ws["out"]))
+        self.connect(out[1], Wire(row, ws["out"] + 1))
+        return out
+
+    def mul_extension(self, a, b):
+        gate = MulExtensionGate.from_config(self.config)
+        key = (gate.key(), 1)
+        row, slot = self._claim_slot(key, gate, [1], gate.num_ops)
+        ws = gate.wires_op(slot)
+        for name, t in (("m0", a), ("m1", b)):
+            self.connect(t[0], Wire(row, ws[name]))
+            self.connect(t[1], Wire(row, ws[name] + 1))
+        out = self.add_virtual_extension_target()
+        self.connect(out[0], Wire(row, ws["out"]))
+        self.connect(out[1], Wire(row, ws["out"] + 1))
+        return out
+
+    def add_extension(self, a, b):
+        return self.arithmetic_extension(1, 1, a, self.one_extension(), b)
+
+    def sub_extension(self, a, b):
+        return self.arithmetic_extension(1, gl.P - 1, a, self.one_extension(), b)
+
+    def mul_add_extension(self, a, b, c):
+        return self.arithmetic_extension(1, 1, a, b, c)
+
+    def scalar_mul_ext(self, s: int, a):
+        return self.arithmetic_extension(s, 0, a, self.one_extension(),
+                                         self.zero_extension())
+
+    def _reduce_ext(self, alpha, terms, gate_cls, max_coeffs, to_ext):
+        acc = self.zero_extension()
+        for start in range(0, len(terms), max_coeffs):
+            chunk = terms[start:start + max_coeffs]
+            gate = gate_cls(len(chunk))
+            row = self.add_gate(gate, [])
+            self.connect(alpha[0], Wire(row, gate.WIRE_ALPHA))
+            self.connect(alpha[1], Wire(row, gate.WIRE_ALPHA + 1))
+            self.connect(acc[0], Wire(row, gate.WIRE_OLD_ACC))
+            self.connect(acc[1], Wire(row, gate.WIRE_OLD_ACC + 1))
+            for i, t in enumerate(chunk):
+                if to_ext:
+                    self.connect(t[0], Wire(row, gate.WIRE_COEFFS + 2 * i))
+                    self.connect(t[1], Wire(row, gate.WIRE_COEFFS + 2 * i + 1))
+                else:
+                    self.connect(t, Wire(row, gate.WIRE_COEFFS + i))
+            acc = self.add_virtual_extension_target()
+            self.connect(acc[0], Wire(row, gate.WIRE_OUTPUT))
+            self.connect(acc[1], Wire(row, gate.WIRE_OUTPUT + 1))
+        return acc
+
+    def reduce_with_powers_ext(self, alpha, terms: list):
+        """sum_i terms[i] * alpha^(n-1-i) for base-field targets `terms`
+        (Horner over ReducingGate rows)."""
+        return self._reduce_ext(alpha, list(terms), ReducingGate,
+                                ReducingGate.max_coeffs(self.config), False)
+
+    def interpolate_coset(self, subgroup_bits: int, shift, values: list, z):
+        """Evaluate, at extension target `z`, the interpolant of the
+        extension targets `values` given on the coset shift*H with
+        |H| = 2^subgroup_bits and values[i] at shift * g^i (one
+        CosetInterpolationGate: the recursive FRI fold check).
+
+        PRECONDITION: `shift` must be nonzero: the gate's quotient-hint
+        constraint `2*s*g^i*w == a-b` is vacuous at s == 0.  The FRI use
+        derives shift as a power of the (nonzero) domain generator times
+        the coset shift, which satisfies this by construction."""
+        gate = CosetInterpolationGate(subgroup_bits)
+        if len(values) != gate.n_points:
+            raise ValueError(f"interpolate_coset takes {gate.n_points} values, "
+                             f"got {len(values)}")
+        row = self.add_gate(gate, [])
+        self.connect(shift, Wire(row, gate.WIRE_SHIFT))
+        for i, t in enumerate(values):
+            self.connect(t[0], Wire(row, gate.wire_values + 2 * i))
+            self.connect(t[1], Wire(row, gate.wire_values + 2 * i + 1))
+        self.connect(z[0], Wire(row, gate.wire_z))
+        self.connect(z[1], Wire(row, gate.wire_z + 1))
+        out = self.add_virtual_extension_target()
+        self.connect(out[0], Wire(row, gate.wire_output))
+        self.connect(out[1], Wire(row, gate.wire_output + 1))
+        return out
+
+    def reduce_with_powers_ext_circuit(self, alpha, terms: list):
+        """Horner fold of extension targets by alpha (plonky2's
+        `reduce_with_powers_ext_circuit`)."""
+        return self._reduce_ext(alpha, list(terms), ReducingExtensionGate,
+                                ReducingExtensionGate.max_coeffs(self.config),
+                                True)
 
     # ---------------- public inputs ----------------
 

@@ -25,15 +25,17 @@ from .buffer import Buffer
 # ------------------------------------------------------------------
 
 # Gates of the JAX registry that the port does not carry yet.
-NOT_PORTED = ("Lookup", "LookupTable", "Poseidon2", "Exponentiation",
-              "ArithmeticExtension", "MulExtension", "Reducing",
-              "ReducingExtension", "CosetInterpolation")
+NOT_PORTED = ("Lookup", "LookupTable", "Poseidon2")
 
 
 def _registry():
     from ..gates import (ArithmeticGate, BaseSumGate, ConstantGate, NoopGate,
                          PoseidonGate, PublicInputGate)
     from ..gates.comparison import ComparisonGate, U32SubtractionGate
+    from ..gates.coset_interpolation import CosetInterpolationGate
+    from ..gates.exponentiation import ExponentiationGate
+    from ..gates.extension import (ArithmeticExtensionGate, MulExtensionGate,
+                                   ReducingExtensionGate, ReducingGate)
     from ..gates.random_access import RandomAccessGate
     from ..gates.u32_arithmetic import (U32AddManyGate, U32ArithmeticGate,
                                         U32RangeCheckGate)
@@ -59,6 +61,15 @@ def _registry():
         "Comparison": lambda a: ComparisonGate(num_bits=a["num_bits"]),
         "RandomAccess":
             lambda a: RandomAccessGate(a["bits"], a["num_copies"]),
+        "Exponentiation":
+            lambda a: ExponentiationGate(num_power_bits=a["num_power_bits"]),
+        "ArithmeticExtension":
+            lambda a: ArithmeticExtensionGate(a["num_ops"]),
+        "MulExtension": lambda a: MulExtensionGate(a["num_ops"]),
+        "Reducing": lambda a: ReducingGate(a["num_coeffs"]),
+        "ReducingExtension": lambda a: ReducingExtensionGate(a["num_coeffs"]),
+        "CosetInterpolation":
+            lambda a: CosetInterpolationGate(subgroup_bits=a["subgroup_bits"]),
     }
 
 

@@ -1,16 +1,17 @@
 """Named witness hints: gadget hint generators as (name, params, deps, outs).
 
 Host copy of the part of `plonky2_tpu/witness/hints.py` that the ported
-builder calls: the registry, `NamedGenerator`, the field hint
-`inv_or_zero` (for `is_equal`), and the biguint, nonnative and GLV hints
-of the secp256k1 gadgets.  A hint maps (params, dep values) to the values
-of its `outs`, in order; biguints travel as little-endian u32 limbs.  The
-extension and lookup hints arrive with their gates.
+builder calls: the registry, `NamedGenerator`, the field hints
+`inv_or_zero` (for `is_equal`) and `ext_inv` (the recursive verifier's
+GF(p^2) inverse), and the biguint, nonnative and GLV hints of the
+secp256k1 gadgets.  A hint maps (params, dep values) to the values of its
+`outs`, in order; biguints travel as little-endian u32 limbs.  The lookup
+hints arrive with their gates.
 """
 
 from __future__ import annotations
 
-from ..field import gl
+from ..field import ext, gl
 from .witness import Generator
 
 HINTS: dict = {}
@@ -60,6 +61,12 @@ def big_from_int(v: int, n: int) -> list:
 def _inv_or_zero(p, vals):
     d = vals[0]
     return [gl.inv_s(d) if d else 0]
+
+
+@hint_fn("ext_inv")
+def _ext_inv(p, vals):
+    v = ext.inv_s((vals[0], vals[1]))
+    return [v[0], v[1]]
 
 
 @hint_fn("biguint_div_rem")

@@ -1,7 +1,7 @@
 """Write tests/torch_port_vectors.json: the JAX package's proof digests
 that the PyTorch port (`plonky2_tpu_torch`) must reproduce byte for byte.
 
-Nine circuits, built, proved and verified with the JAX package on the
+Twelve circuits, built, proved and verified with the JAX package on the
 CPU:
 
 * `tiny`: the golden tiny circuit of tests/test_golden_vectors.py (its
@@ -24,7 +24,15 @@ CPU:
   (one secp256k1 ECDSA verify, 136 wires, degree 2^16);
 * `small_ecc`: secp256k1 curve_add, curve_double, a RandomAccessGate
   select over four points and the GLV scalar split under `test_config`,
-  at 2^9 rows (the CPU tests in tests/test_torch_ecdsa.py).
+  at 2^9 rows (the CPU tests in tests/test_torch_ecdsa.py);
+* `small_ext`: every GF(p^2), exponentiation and coset-interpolation
+  builder method and the `ext_inv` hint under `test_config`, 2^4 rows
+  (tests/test_torch_extension_gates.py);
+* `small_recursion` and `config5`, each `{"inner": ..., "outer": ...}`:
+  the inner circuit of tests/test_recursion_e2e.py and the 2^12-row
+  circuit verifying its proof; `bench.circuits.build_aggregation(4)`, the
+  zkDSA circuit with its four proofs (their digests in draw order) and
+  the 2^13-row circuit verifying all four, both under `test_config`.
 
 For each: degree_bits, num_gates, the constants/sigmas cap, the public
 inputs, the proof length, the proof sha256, the sha256 of the
@@ -33,9 +41,10 @@ serialized verifier key, `prover_data_sha256` (the sha256 of
 `wire_matrix_sha256` (the sha256 of the witness's [num_wires, n] uint64
 wire matrix, little-endian, row by row, as the JAX prover's phase 1
 computes it: `generate_witness_tape`, `scatter`, then every gate's
-batched `aux_fill`).  `config4` and `small_ecc` also carry
-`graph_sha256` (`graph_digest`): a digest of the builder's graph that a
-test can recompute from the port's builder without a build.  The whole
+batched `aux_fill`).  `config4`, `small_ecc` and the two outer circuits
+also carry `graph_sha256` (`plonky2_tpu_torch.ir.digest.graph_digest`): a
+digest of the builder's graph that a test can recompute from the port's
+builder without a build.  The whole
 run takes about 50 minutes on the CPU: the JAX package proves configs 1,
 2, 3 and 4 (config 4 alone took 710 s, small_ecc 531 s).
 
@@ -48,7 +57,8 @@ witness without proving: every field it recomputes that the fixture
 already has must equal the fixture's, and their proof fields are kept
 from it (this adds a field that needs only the build and the witness,
 such as the verifier-key, prover-data and wire-matrix digests, without
-the long proves).
+the long proves); it does not apply to the two recursion entries.
+Config 5's entries took about 20 minutes, each name in its own process.
 """
 from __future__ import annotations
 
@@ -188,40 +198,58 @@ def small_ecc(ir):
     return b, inputs
 
 
-def graph_digest(builder) -> str:
-    """sha256 of the builder's graph before `build()`: every row's gate key
-    and constants, the public inputs, and the copy classes (each class its
-    members' reprs, sorted).  Two builders with the same digest compile to
-    the same arrays."""
-    # The builder's `_parent` is a union-find forest; its roots are found
-    # here with memoised paths (the builder's `_find` compresses one link a
-    # call, which is quadratic on the long chains of a 2^16-row circuit).
-    parent, root = builder._parent, {}
+def small_ext(ir):
+    """Every GF(p^2), exponentiation and coset-interpolation builder method
+    and the `ext_inv` hint under test_config.  The public inputs are each
+    result's limbs, in the order the methods are called.  `ir` is the JAX
+    package's or the port's; the hint comes from the same package."""
+    import importlib
+    import random
+    package = ir.__name__.rsplit(".", 1)[0]
+    _inv_extension = importlib.import_module(
+        package + ".recursion.verifier")._inv_extension
 
-    def find(x):
-        path = []
-        while x not in root and x in parent:
-            path.append(x)
-            x = parent[x]
-        r = root.get(x, x)
-        for y in path:
-            root[y] = r
-        return r
+    rng = random.Random(0xE87)
+    P = (1 << 64) - (1 << 32) + 1
+    b = ir.CircuitBuilder(ir.CircuitConfig.test_config())
+    a, c, d, alpha, z = (b.add_virtual_extension_target() for _ in range(5))
+    base, e, shift = (b.add_virtual_target() for _ in range(3))
+    terms = [b.add_virtual_target() for _ in range(23)]
+    values = [b.add_virtual_extension_target() for _ in range(4)]
+    outs = [
+        b.add_extension(a, c),
+        b.sub_extension(a, c),
+        b.mul_extension(a, c),
+        b.mul_add_extension(a, c, d),
+        b.scalar_mul_ext(5, a),
+        b.arithmetic_extension(3, 4, a, c, d),
+        b.reduce_with_powers_ext(alpha, terms),
+        b.reduce_with_powers_ext_circuit(alpha, [a, c, d, z] * 3),
+        b.interpolate_coset(2, shift, values, z),
+        _inv_extension(b, d),
+    ]
+    bits = b.split_le(e, 16)
+    outs.append((b.exp_from_bits(base, bits), b.exp_u64(base, e, 16)))
+    for o in outs:
+        b.register_public_inputs(list(o))
+    inputs: dict = {e: rng.randrange(1 << 16), base: rng.randrange(P),
+                    shift: rng.randrange(1, P)}
+    for t in (*a, *c, *d, *alpha, *z, *terms, *(x for v in values for x in v)):
+        inputs[t] = rng.randrange(P)
+    return b, inputs
 
-    classes: dict = {}
-    for t in set(parent) | set(parent.values()):
-        classes.setdefault(find(t), []).append(repr(t))
-    graph = {
-        "rows": [[g.key(), [int(c) for c in cs]]
-                 for g, cs in builder.gate_instances],
-        "public_inputs": [repr(t) for t in builder.public_inputs],
-        "copy_classes": sorted(sorted(c) for c in classes.values()),
-    }
-    raw = json.dumps(graph, separators=(",", ":"), default=repr)
-    return hashlib.sha256(raw.encode()).hexdigest()
+
+def recursion_inner(ir):
+    """The inner circuit of tests/test_recursion_e2e.py."""
+    b = ir.CircuitBuilder(ir.CircuitConfig.test_config())
+    x = b.add_virtual_target()
+    y = b.add_virtual_target()
+    h = b.hash_n_to_hash_no_pad([x, y])
+    b.register_public_inputs([x, y] + h)
+    return b, {x: 3, y: 5}
 
 
-GRAPH_DIGESTED = ("config4", "small_ecc")
+GRAPH_DIGESTED = ("config4", "small_ecc", "small_recursion", "config5")
 
 
 def wire_matrix(pd, inputs):
@@ -249,11 +277,16 @@ def wire_matrix_sha256(wires) -> str:
 
 
 def _record(builder, inputs, prove: bool = True, graph: bool = False) -> dict:
-    from plonky2_tpu.serialization import (serialize_proof, serialize_prover_data,
-                                           serialize_verifier_data)
+    from plonky2_tpu_torch.ir.digest import graph_digest
     num_gates = builder.num_gates()
     digest = graph_digest(builder) if graph else None
-    data = builder.build()
+    return _record_data(builder.build(), num_gates, inputs, prove, digest)[0]
+
+
+def _record_data(data, num_gates, inputs, prove=True, digest=None):
+    """-> (the entry of a built circuit, its proof or None)."""
+    from plonky2_tpu.serialization import (serialize_proof, serialize_prover_data,
+                                           serialize_verifier_data)
     out = {
         "degree_bits": data.common.degree_bits,
         "num_gates": num_gates,
@@ -266,6 +299,7 @@ def _record(builder, inputs, prove: bool = True, graph: bool = False) -> dict:
     }
     if digest is not None:
         out["graph_sha256"] = digest
+    proof = None
     if prove:
         proof = data.prove(inputs)
         data.verify(proof)
@@ -275,7 +309,79 @@ def _record(builder, inputs, prove: bool = True, graph: bool = False) -> dict:
             "proof_len": len(raw),
             "proof_sha256": hashlib.sha256(raw).hexdigest(),
         })
-    return out
+    return out, proof
+
+
+class _Digesting:
+    """Wraps `CircuitBuilder.build` so that the graph digest of every
+    builder built inside the block is taken just before its build."""
+
+    def __init__(self, ir):
+        self.cls, self.digests, self.gates = ir.CircuitBuilder, [], []
+
+    def __enter__(self):
+        from plonky2_tpu_torch.ir.digest import graph_digest
+        build, outer = self.cls.build, self
+
+        def digesting_build(b, *args, **kwargs):
+            outer.digests.append(graph_digest(b))
+            outer.gates.append(b.num_gates())
+            return build(b, *args, **kwargs)
+
+        self._build = build
+        self.cls.build = digesting_build
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.build = self._build
+
+
+def small_recursion(ir) -> dict:
+    """`inner`: the circuit of tests/test_recursion_e2e.py, proved;
+    `outer`: a test_config circuit verifying that proof in-circuit
+    (`add_proof_verification`, public inputs re-registered), proved."""
+    from plonky2_tpu.recursion import add_proof_verification, set_proof_witness
+    b, inputs = recursion_inner(ir)
+    num_gates = b.num_gates()
+    inner_data = b.build()
+    inner, inner_proof = _record_data(inner_data, num_gates, inputs)
+    bo = ir.CircuitBuilder(ir.CircuitConfig.test_config())
+    pt = add_proof_verification(bo, inner_data.verifier)
+    bo.register_public_inputs(pt.public_inputs)
+    outer_inputs: dict = {}
+    set_proof_witness(outer_inputs, pt, inner_proof)
+    return {"inner": inner, "outer": _record(bo, outer_inputs, graph=True)}
+
+
+def config5(ir) -> dict:
+    """`bench.circuits.build_aggregation(4)`: `inner` is the zkDSA circuit
+    under test_config with its four proofs (one key and one message drawn
+    for each, in turn), `outer` the 2^13-row test_config circuit that
+    verifies all four, proved."""
+    from plonky2_tpu.bench.circuits import build_aggregation
+    from plonky2_tpu.recursion import set_proof_witness
+    from plonky2_tpu.serialization import serialize_proof, serialize_verifier_data
+    make, _meta = build_aggregation(4)
+    with _Digesting(ir) as dig:
+        agg, proofs = make()
+    inner_vd = agg.inner_verifier
+    raws = [serialize_proof(p) for p in proofs]
+    inner = {
+        "degree_bits": inner_vd.common.degree_bits,
+        "num_gates": dig.gates[0],
+        "verifier_data_sha256": hashlib.sha256(
+            serialize_verifier_data(inner_vd)).hexdigest(),
+        "public_inputs": [[int(x) for x in p.public_inputs] for p in proofs],
+        "proof_len": [len(r) for r in raws],
+        "proof_sha256": [hashlib.sha256(r).hexdigest() for r in raws],
+    }
+    outer_inputs: dict = {}
+    for pt, p in zip(agg.proof_targets, proofs):
+        set_proof_witness(outer_inputs, pt, p)
+    outer, _ = _record_data(agg.data, dig.gates[1], outer_inputs,
+                            digest=dig.digests[1])
+    assert outer["public_inputs"] == [int(v) for p in proofs for v in p.public_inputs]
+    return {"inner": inner, "outer": outer}
 
 
 def _circuits(ir):
@@ -291,7 +397,13 @@ def _circuits(ir):
         "small_u32": lambda: small_u32(ir),
         "small_ecc": lambda: small_ecc(ir),
         "config4": lambda: build_ecdsa(1)[:2],
+        "small_ext": lambda: small_ext(ir),
     }
+
+
+# Entries recorded as {"inner": ..., "outer": ...} by a function of their
+# own (an inner circuit proved, then an outer circuit verifying it).
+RECURSIVE = {"small_recursion": small_recursion, "config5": config5}
 
 
 def load_fixture() -> dict:
@@ -310,8 +422,14 @@ def compute_vectors(only=None, build_only=()) -> dict:
     circuits = _circuits(ir)
     chosen = set(only or ()) | set(build_only)
     out = load_fixture() if chosen else {}
-    for name, make in circuits.items():
+    for name, make in {**circuits, **RECURSIVE}.items():
         if chosen and name not in chosen:
+            continue
+        if name in RECURSIVE:
+            if name in build_only:
+                raise SystemExit(f"{name}: --build-only does not apply")
+            out[name] = RECURSIVE[name](ir)
+            print(f"{name}: done", file=sys.stderr, flush=True)
             continue
         b, inputs = make()
         if name in build_only:

@@ -27,7 +27,6 @@ Exact equality (tolerance 0): integer arithmetic.
 """
 import copy
 import hashlib
-import importlib.util
 import json
 import os
 import random
@@ -55,6 +54,7 @@ from plonky2_tpu_torch.gadgets.biguint import set_biguint_target
 from plonky2_tpu_torch.gadgets.curve import BLIND
 from plonky2_tpu_torch.gates import BatchAlg, EvalVars, RandomAccessGate
 from plonky2_tpu_torch.ir import CircuitBuilder, CircuitConfig
+from plonky2_tpu_torch.ir.digest import graph_digest
 from plonky2_tpu_torch.serialization import (gate_from_key, serialize_proof,
                                              serialize_verifier_data)
 from plonky2_tpu_torch.witness import generate_witness
@@ -71,14 +71,6 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-def _load_vector_script():
-    path = os.path.join(os.path.dirname(HERE), "scripts", "make_torch_port_vectors.py")
-    spec = importlib.util.spec_from_file_location("make_torch_port_vectors", path)
-    gen = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(gen)
-    return gen
 
 
 def _fixture(key: str) -> dict:
@@ -394,10 +386,9 @@ def small_ecc():
 def test_small_ecc_graph_equals_jax(small_ecc):
     b, inputs, meta = small_ecc
     want = _fixture("small_ecc")
-    gen = _load_vector_script()
     assert meta["name"] == "small_ecc"
     assert b.num_gates() == want["num_gates"] < (1 << 9) - 16
-    assert gen.graph_digest(b) == want["graph_sha256"]
+    assert graph_digest(b) == want["graph_sha256"]
 
 
 @pytest.fixture(scope="module")
@@ -462,5 +453,5 @@ def test_config4_graph_equals_fixture():
     # build() adds the public-input gate, then pads to a power of two
     assert num_gates.bit_length() == want["degree_bits"] == 16
     assert meta == {"name": "ecdsa_verify", "batch": 1}
-    assert _load_vector_script().graph_digest(b) == want["graph_sha256"]
+    assert graph_digest(b) == want["graph_sha256"]
     assert len(inputs) == 5 * 8

@@ -84,6 +84,14 @@ GATES = {
     "UninterleaveToU32": (gates.UninterleaveToU32Gate(2), jil.UninterleaveToU32Gate(2)),
     "UninterleaveToB32": (gates.UninterleaveToB32Gate(2), jil.UninterleaveToB32Gate(2)),
     "RandomAccess": (gates.RandomAccessGate(4, 4), JRandomAccessGate(4, 4)),
+    "Exponentiation": (gates.ExponentiationGate(8), jgates.ExponentiationGate(8)),
+    "ArithmeticExtension": (gates.ArithmeticExtensionGate(10),
+                            jgates.ArithmeticExtensionGate(10)),
+    "MulExtension": (gates.MulExtensionGate(13), jgates.MulExtensionGate(13)),
+    "Reducing": (gates.ReducingGate(43), jgates.ReducingGate(43)),
+    "ReducingExtension": (gates.ReducingExtensionGate(5), jgates.ReducingExtensionGate(5)),
+    "CosetInterpolation": (gates.CosetInterpolationGate(4),
+                           jgates.CosetInterpolationGate(4)),
 }
 
 
@@ -216,10 +224,10 @@ def test_verifier_data_bytes_equal_jax_and_roundtrip():
     verify(vd, proof)
 
 
-@pytest.mark.parametrize("key", ["Exponentiation(num_power_bits=8)",
+@pytest.mark.parametrize("key", ["Lookup(num_slots=8)",
                                  "Poseidon2(width=12)", "LookupTable(num_slots=3)",
-                                 "CosetInterpolation(subgroup_bits=4)",
-                                 "ArithmeticExtension(num_ops=10)"])
+                                 "LookupTable(num_slots=16)",
+                                 "Poseidon2(width=8)"])
 def test_unported_gate_keys_raise_not_implemented(key):
     with pytest.raises(NotImplementedError, match=key.split("(")[0]):
         gate_from_key(key)
