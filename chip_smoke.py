@@ -7,9 +7,12 @@ circuit (51 chained depth-32 SMT process proofs, 2^14 rows), all under
 standard_recursion_config, the config-4 circuit (one secp256k1 ECDSA
 verify, 55,421 gates, 2^16 rows, under standard_ecc_config: 136 wires)
 and config 5 (four zkDSA proofs of a 2^2-row circuit and the 2^13-row
-circuit that verifies them in-circuit, both under test_config) — on the
-card, after checking each hand-written kernel against its plain torch
-version there, and verifies every proof with the port's host verifier:
+circuit that verifies them in-circuit, both under test_config), config 1
+under poseidon2_config (every two_to_one a Poseidon2Gate row), and the
+reference's 4-block Keccak-256 circuit (24,883 gates, 2^15 rows) under
+keccak_config (Keccak Merkle trees, transcript and grind) — on the card,
+after checking each hand-written kernel against its plain torch version
+there, and verifies every proof with the port's host verifier:
 
   1. device      name, power limit, SM clock; fails without CUDA
   2. build       nvcc builds plonky2_tpu_torch/csrc/*.cu, one process per
@@ -48,7 +51,19 @@ version there, and verifies every proof with the port's host verifier:
  11. config 4    the same; then K3 against the plain LDE at its wires,
                  constants/sigmas and Z/partial-products commit shapes, read
                  from its built common data
- 12. config 5    `bench.circuits.aggregation_steps`, the code of
+ 12. config1-p2 config 1's chain under poseidon2_config: the steps of 8
+ 13. keccak4     `bench.build_keccak256(4)`: the builder's graph digest,
+                 the build, the four Ethereum trie nodes of
+                 ETH_LONG_VECTORS proved, each proof's public inputs (as
+                 little-endian u32s) the node's Keccak-256 digest and its
+                 bytes the fixture's, each verified (and rejected
+                 tampered); the circuit saved, loaded on the card (its
+                 cs_cap the fixture's, K3 launched) and the first node
+                 proved from it; each node's wire matrix the fixture's; the
+                 time each prove spends in Keccak Merkle trees and in the
+                 grind, and one plain Keccak permutation over the wires
+                 tree's 2^18 leaves
+ 14. config 5    `bench.circuits.aggregation_steps`, the code of
                  `bench.build_aggregation(4)` up to the outer build: the
                  zkDSA circuit built, its four proofs (the JAX seed's keys
                  and messages) made and verified, each equal to the
@@ -57,7 +72,7 @@ version there, and verifies every proof with the port's host verifier:
                  shapes (n = 4, read from its common data); then the steps
                  of 8 for the outer circuit of 2^13 rows
 
-Every proof phase (7-12) ends with a verify step: the port's verifier
+Every proof phase (7-14) ends with a verify step: the port's verifier
 accepts the card's proof and rejects it with one public input (the wires
 cap where there is none) or one opening changed, and the verifier key's
 bytes have the fixture's sha256 and read back to the same bytes.
@@ -65,8 +80,9 @@ bytes have the fixture's sha256 and read back to the same bytes.
 All checks are exact: field arithmetic has no rounding, so every tolerance
 is 0.  Kernel inputs cover all of [0, p), edge values included.  Kernel
 launch counts are set to 0 just before each main path (a configuration's
-build and first prove, its load from bytes, and config 5's inner circuit,
-its four proofs and the outer trace) and read just after it.
+build and first prove (keccak4: its four proves), its load from bytes, and
+config 5's inner circuit, its four proofs and the outer trace) and read
+just after it.
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its 32-bit integer multiplies
 over 64 per clock per SM x 132 SMs x the card's maximum SM clock.  Each
@@ -803,6 +819,144 @@ def phase_config5_inner(device):
     return launches, inner.data.common, b, zkaa.aggregation_witness(pts, proofs)
 
 
+def span_seconds(span, prefix: str) -> float:
+    """Total seconds of the spans under `span` whose name starts with
+    `prefix` (none of them nests in another)."""
+    if span.name.startswith(prefix):
+        return span.elapsed
+    return sum(span_seconds(c, prefix) for c in span.children)
+
+
+def phase_keccak4(device):
+    """The reference's 4-block Keccak-256 circuit under keccak_config
+    (`bench.build_keccak256(4)`): the builder's graph digest against the
+    fixture's, the build, and the four Ethereum trie nodes proved on the
+    card, each proof's public inputs spelling the node's digest and its
+    bytes the fixture's, then the verify step on each; the circuit saved to
+    bytes, loaded on the card (its cs_cap the JAX build's) and the first
+    node proved from it; each node's wire matrix (through the tape) the
+    fixture's, the first also the dynamic scheduler's; the time of one
+    plain Keccak permutation over the wires tree's leaves.  -> ({path:
+    launches}, the circuit's common data): `keccak4` (the build and the
+    four proves) and `keccak4-load` (the load), each counted from 0 just
+    before it and read just after."""
+    import numpy as np
+    import torch
+    from plonky2_tpu_torch import utils
+    from plonky2_tpu_torch.bench.circuits import build_keccak256
+    from plonky2_tpu_torch.field import gl
+    from plonky2_tpu_torch.hashes import keccak_hash
+    from plonky2_tpu_torch.ir.digest import graph_digest
+    from plonky2_tpu_torch.prove.prover import scheduler_witness_matrix, witness_matrix
+    from plonky2_tpu_torch.serialization import (deserialize_prover_data, serialize_proof,
+                                                 serialize_prover_data)
+    tag, want = "keccak4", fixture("keccak4")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    b, witnesses, meta = build_keccak256(4)
+    trace_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    digest = graph_digest(b)
+    t0 += time.perf_counter() - t1           # the digest is left out of the wall
+    num_gates = b.num_gates()
+    if (num_gates, digest) != (want["num_gates"], want["graph_sha256"]):
+        raise AssertionError(f"{tag} graph ({num_gates} gates, sha256 {digest}) differs "
+                             f"from the JAX fixture")
+    log(f"[{tag}] builder graph ({num_gates} gates) sha256 {digest} equals the JAX fixture")
+    data = b.build(device=device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cs_cap = [[int(x) for x in d] for d in data.verifier.cs_cap]
+    if data.common.degree_bits != want["degree_bits"] or cs_cap != want["cs_cap"]:
+        raise AssertionError(f"{tag}: 2^{data.common.degree_bits} rows or the "
+                             f"constants/sigmas cap differ from the JAX fixture")
+
+    def prove_one(pd_data, i, kind):
+        t0 = time.perf_counter()
+        proof = pd_data.prove(witnesses[i])
+        raw = serialize_proof(proof)
+        wall = time.perf_counter() - t0
+        tree = utils.last_tree()
+        pi_hex = b"".join(int(v).to_bytes(4, "little") for v in proof.public_inputs).hex()
+        sha = hashlib.sha256(raw).hexdigest()
+        if pi_hex != meta["digests"][i] or proof.public_inputs != want["public_inputs"][i]:
+            raise AssertionError(f"{tag} node {i}: public inputs {pi_hex} are not the "
+                                 f"digest {meta['digests'][i]}")
+        if (len(raw), sha) != (want["proof_len"][i], want["proof_sha256"][i]):
+            raise AssertionError(f"{tag} node {i} proof ({len(raw)} bytes, sha256 {sha}) "
+                                 f"differs from the JAX fixture")
+        log(f"[{tag}] node {i} ({kind} circuit): public inputs spell its Keccak-256 "
+            f"digest {pi_hex}; {len(raw)} bytes, sha256 {sha} equals the JAX fixture; "
+            f"prove {wall:.3f} s")
+        log(f"[{tag}] node {i} prove: Keccak Merkle trees "
+            f"{span_seconds(tree, 'Merkle tree (keccak_hash'):.3f} s")
+        log(f"[{tag}] node {i} prove: PoW grind {span_seconds(tree, 'FRI PoW grind'):.3f} s")
+        log(f"[{tag}] phase spans, node {i} ({kind} circuit; synchronized; {CARD}):")
+        for line in tree.lines():
+            log("  " + line)
+        return proof, wall
+
+    utils.profiling_enable()
+    proofs, walls = [], []
+    for i in range(len(witnesses)):
+        proof, wall = prove_one(data, i, "built")
+        proofs.append(proof)
+        walls.append(wall)
+    utils.profiling_disable()
+    launches = {tag: read_launches()}
+
+    blob = serialize_prover_data(data.prover)
+    blob_digest = hashlib.sha256(blob).hexdigest()
+    if blob_digest != want["prover_data_sha256"]:
+        raise AssertionError(f"{tag} prover data sha256 {blob_digest} != JAX fixture "
+                             f"{want['prover_data_sha256']}")
+    reset_launches()
+    t0 = time.perf_counter()
+    loaded = deserialize_prover_data(blob, device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    launches[f"{tag}-load"] = read_launches()
+    if [[int(x) for x in d] for d in loaded.verifier.cs_cap] != want["cs_cap"]:
+        raise AssertionError(f"{tag} loaded circuit's constants/sigmas cap differs from "
+                             f"the JAX build's")
+    log(f"[{tag}] prover data {len(blob)} bytes, sha256 {blob_digest} equals the JAX "
+        f"fixture; loaded on the card in {load_s:.3f} s with the JAX build's cs_cap ({CARD})")
+    utils.profiling_enable()
+    _, wall = prove_one(loaded, 0, "loaded")
+    walls.append(wall)
+    utils.profiling_disable()
+    peak = torch.cuda.max_memory_allocated()
+
+    for i, inputs in enumerate(witnesses):
+        wires, _ = witness_matrix(data.prover, inputs)
+        if i == 0 and not np.array_equal(wires, scheduler_witness_matrix(data.prover,
+                                                                         inputs)[0]):
+            raise AssertionError(f"{tag} tape wire matrix differs from the scheduler's")
+        wd = hashlib.sha256(np.ascontiguousarray(wires, dtype="<u8").tobytes()).hexdigest()
+        if wd != want["wire_matrix_sha256"][i]:
+            raise AssertionError(f"{tag} node {i} wire matrix sha256 {wd} != JAX fixture")
+    log(f"[{tag}] wire matrices of the four nodes equal the JAX fixture's (the first also "
+        f"the dynamic scheduler's)")
+    # one absorption of the wires tree's leaf hashing, plain torch
+    n_leaves = 1 << (data.common.degree_bits + data.common.config.fri.rate_bits)
+    state = gl.to_tensor(rand_field(np.random.RandomState(12), (12, n_leaves)), device)
+    ms = time_ms(lambda: keccak_hash.permute_cols(state), launches=1, brackets=3)
+    log(f"[{tag}] Keccak permute_cols [12, {n_leaves}] (plain torch): {ms:.4f} ms "
+        f"({CARD})")
+    del state
+    for path, counts in launches.items():
+        log(f"[{tag}] launches on the {path} path: "
+            + ", ".join(f"{k} {v}" for k, v in counts.items()) + f" ({CARD})")
+    log(f"[{tag}] build {build_s:.3f} s ({trace_s:.3f} s before `build()`); load "
+        f"{load_s:.3f} s; proves (four built, one loaded) "
+        + ", ".join(f"{t:.3f} s" for t in walls)
+        + f"; peak device memory {peak / 2**20:.1f} MiB ({CARD})")
+    for i, proof in enumerate(proofs):
+        verify_step(f"{tag} node {i}", data, proof, want)
+    return launches, data.common
+
+
 def phase_commits(device, tag, common):
     """Hold the LDE kernel that the commit path's dispatcher
     (`ntt.lde_from_values_rev_auto`) picks for a circuit, K2-rev up to 2^13
@@ -856,9 +1010,18 @@ def main() -> int:
                         ("config4", lambda: build_ecdsa(1))):
         launches, common[path] = phase_config(path, device, build, fixture(path))
         paths.update(launches)
+    from plonky2_tpu_torch.ir import CircuitConfig
+    launches, common["config1-p2"] = phase_config(
+        "config1-p2", device,
+        lambda: build_poseidon_chain(12, CircuitConfig.poseidon2_config()),
+        fixture("config1_p2"))
+    paths.update(launches)
+    launches, common["keccak4"] = phase_keccak4(device)
+    paths.update(launches)
     held = {"K2-rev": k2_rev, "K3": k3}
-    key, out = phase_commits(device, "config4", common["config4"])
-    held[key].update(out)
+    for path in ("keccak4", "config4"):
+        key, out = phase_commits(device, path, common[path])
+        held[key].update(out)
     # config 5: the inner circuit, its proofs and the outer trace are one
     # path; the outer build and first prove, and its load, are the others
     launches, common["config5-inner"], b5, inputs5 = phase_config5_inner(device)
@@ -871,7 +1034,8 @@ def main() -> int:
     paths.update(launches)
     required = {"config1": ("K1", "K2-rev"), "config2": ("K1", "K2-rev"),
                 "config3": ("K1", "K3"), "config4": ("K1", "K3"),
-                "config5": ("K1", "K2-rev")}
+                "config5": ("K1", "K2-rev"), "config1-p2": ("K1", "K2-rev"),
+                "keccak4": ("K3",)}
     required.update({f"{path}-load": kernels for path, kernels in list(required.items())})
     required["config5-inner"] = ("K1", "K2-rev")
     for path, kernels in required.items():
@@ -890,7 +1054,7 @@ def main() -> int:
         ("K2-rev", "lde_from_values_rev [135, 4096] rate 3 (config 1 wires)",
          "plonky2_tpu_torch/csrc/lde.cu", "plonky2_tpu/ntt/pallas_lde.py:316",
          k2_rev[(135, 4096, 3)], lde_work(135, 4096, 3, k2_table_words(12, 3)),
-         ("config1", "config1-load")),
+         ("config1", "config1-load", "config1-p2", "config1-p2-load")),
         ("K2-rev", "lde_from_values_rev [135, 8192] rate 3 (config 2 and 5 wires)",
          "plonky2_tpu_torch/csrc/lde.cu", "plonky2_tpu/ntt/pallas_lde.py:316",
          k2_rev[(135, 1 << 13, 3)], lde_work(135, 1 << 13, 3, k2_table_words(13, 3)),
@@ -906,6 +1070,10 @@ def main() -> int:
          "plonky2_tpu_torch/csrc/lde_tiled.cu", "plonky2_tpu/ntt/pallas_lde_tiled.py:338",
          k3[(135, 1 << 14, 3)], lde_work(135, 1 << 14, 3, k3_table_words(14, 3)),
          ("config3", "config3-load")),
+        ("K3", "lde_from_values_tiled_rev [135, 32768] rate 3 (keccak4 wires)",
+         "plonky2_tpu_torch/csrc/lde_tiled.cu", "plonky2_tpu/ntt/pallas_lde_tiled.py:338",
+         k3[(135, 1 << 15, 3)], lde_work(135, 1 << 15, 3, k3_table_words(15, 3)),
+         ("keccak4", "keccak4-load")),
         ("K3", "lde_from_values_tiled_rev [136, 65536] rate 3 (config 4 wires)",
          "plonky2_tpu_torch/csrc/lde_tiled.cu", "plonky2_tpu/ntt/pallas_lde_tiled.py:338",
          k3[(136, 1 << 16, 3)], lde_work(136, 1 << 16, 3, k3_table_words(16, 3)),

@@ -4,8 +4,10 @@ Counterpart of `plonky2_tpu/fri/fri.py`.  Commit phase: Merkle-commit
 the current layer's folding cosets, draw beta, fold by arity 2^a (a
 batched size-a iNTT of every coset plus a Horner evaluation at beta/x_j).
 Then the final polynomial in the clear, the proof-of-work grind (one
-batched Poseidon permutation per chunk of candidate witnesses — kernel K1
-on the card), and the query openings.
+batched permutation of the transcript hasher per chunk of candidate
+witnesses: kernel K1 on the card under Poseidon, plain torch under
+Keccak), and the query openings.  The layer trees and the grind hash with
+the challenger's hasher, the config's transcript hasher.
 `fri_verify` replays the transcript and checks each query on the host, in
 Python ints; it touches no device.
 
@@ -23,7 +25,6 @@ import numpy as np
 import torch
 
 from ..field import ext, gl
-from ..hashes import poseidon
 from ..merkle import MerkleTree, verify_merkle_proof_s
 from ..ntt.ntt import _bitrev_perm, host_powers, intt, intt_from_rev
 from ..transcript import Challenger
@@ -117,14 +118,15 @@ def _fold(values, beta, shift: int, arity_bits: int):
 # Proof-of-work grind (device)
 # ------------------------------------------------------------------
 
-def _grind_kernel(state_row, lo: int, batch: int, pos: int, pow_bits: int):
+def _grind_kernel(state_row, lo: int, batch: int, pos: int, pow_bits: int,
+                  hasher):
     """Candidates lo .. lo+batch-1 -> (found, first hit offset): permute
     every candidate state at once, test the last rate lane's top pow_bits
     bits (an unsigned compare), return the first hit."""
     device = state_row.device
-    st = state_row[:, None].expand(poseidon.WIDTH, batch).clone()
+    st = state_row[:, None].expand(hasher.WIDTH, batch).clone()
     st[pos] = lo + torch.arange(batch, dtype=gl.DTYPE, device=device)
-    out = poseidon.permute_cols(st)[poseidon.RATE - 1]
+    out = hasher.permute_cols(st)[hasher.RATE - 1]
     # out < 2^(64 - pow_bits) as u64: the top pow_bits bits are zero
     ok = ((out >> (64 - pow_bits)) & ((1 << pow_bits) - 1)) == 0
     hit = int(torch.argmax(ok.to(torch.uint8)).item())
@@ -148,7 +150,7 @@ def grind(challenger: Challenger, pow_bits: int, batch: int | None = None,
     state_row = gl.to_tensor(state, resolve_device(device))
     for chunk in range(max_batches):
         found, hit = _grind_kernel(state_row, chunk * batch, batch, pos,
-                                   pow_bits)
+                                   pow_bits, challenger.hasher)
         if found:
             return chunk * batch + hit
     raise RuntimeError("PoW grind exhausted candidate space")
@@ -184,7 +186,8 @@ def fri_prove(values, degree_bits: int, config: FriConfig,
             leaves_cols = cur.reshape(Nc // a, a, 2).permute(1, 2, 0) \
                              .reshape(2 * a, Nc // a)
             tree = MerkleTree.build_cols(
-                leaves_cols, min(config.cap_height, (Nc // a).bit_length() - 1))
+                leaves_cols, min(config.cap_height, (Nc // a).bit_length() - 1),
+                challenger.hasher)
             layer_trees.append(tree)
             challenger.observe_cap(tree.cap_host())
             beta = challenger.get_ext_challenge()
@@ -310,7 +313,7 @@ def fri_verify(proof: FriProof, degree_bits: int, config: FriConfig,
         require(len(qr.initial) == len(initial_caps), "initial oracle count")
         for opening, cap in zip(qr.initial, initial_caps):
             require(verify_merkle_proof_s(opening.leaf_values, idx, cap,
-                                          opening.siblings),
+                                          opening.siblings, challenger.hasher),
                     "initial Merkle proof")
         old_eval = combine_fn(idx, [o.leaf_values for o in qr.initial])
 
@@ -325,7 +328,8 @@ def fri_verify(proof: FriProof, degree_bits: int, config: FriConfig,
                     and tuple(step.evals[pos]) == tuple(old_eval),
                     "fold consistency")
             leaf = [x for e in step.evals for x in e]
-            require(verify_merkle_proof_s(leaf, j, cap, step.siblings),
+            require(verify_merkle_proof_s(leaf, j, cap, step.siblings,
+                                          challenger.hasher),
                     "layer Merkle proof")
             # block slot m holds the value at x_j * w_a^{rev_a(m)},
             # x_j = shift * w_N^{rev_rows(j)}

@@ -1,8 +1,8 @@
 """Gadgets: in-circuit building blocks over `ir.CircuitBuilder`.
 
 Host copy of `plonky2_tpu/gadgets/`; the SMT, u32, biguint, nonnative,
-secp256k1 curve and ECDSA gadgets are ported.  Importing the package
-attaches their builder methods.
+secp256k1 curve, ECDSA and Keccak-256 gadgets are ported.  Importing the
+package attaches their builder methods.
 """
 
 import inspect
@@ -21,4 +21,4 @@ def attach(namespace: dict) -> None:
 
 
 from . import smt, u32  # noqa: E402,F401
-from . import biguint, nonnative, curve, ecdsa  # noqa: E402,F401
+from . import biguint, nonnative, curve, ecdsa, keccak  # noqa: E402,F401

@@ -423,11 +423,14 @@ class CircuitBuilder:
     # ---------------- hashing ----------------
 
     def permute_swapped(self, inputs: list, swap) -> list:
-        """One PoseidonGate taking 12 inputs + swap bool -> 12 outputs."""
-        from ..gates import poseidon_gate as pg
+        """One Poseidon(2)Gate, per config.algebraic_hasher, taking 12
+        inputs + swap bool -> 12 outputs.  Both gates share a wire layout."""
+        from ..gates import Poseidon2Gate, poseidon_gate as pg
         if len(inputs) != poseidon.WIDTH:
             raise ValueError(f"permute takes {poseidon.WIDTH} inputs")
-        row = self.add_gate(PoseidonGate(), [])
+        gate = Poseidon2Gate() if self.config.algebraic_hasher == "poseidon2" \
+            else PoseidonGate()
+        row = self.add_gate(gate, [])
         for i, t in enumerate(inputs):
             self.connect(t, Wire(row, pg.WIRE_INPUT + i))
         self.connect(swap, Wire(row, pg.WIRE_SWAP))

@@ -1,10 +1,10 @@
 """Circuit configuration presets.
 
 Host copy of `plonky2_tpu/ir/config.py` (plonky2's `CircuitConfig`
-presets).  The port hashes with Poseidon only, so the JAX config's two
-hasher fields are the one constant `HASHER` (the verifier key writes it for
-both), and the presets that select another hasher (keccak, poseidon2) are
-left out.
+presets), with its two hasher fields: the in-circuit hasher (Poseidon or
+Poseidon2, the gate `permute` emits and the public-input hash) and the
+transcript hasher (Poseidon or Keccak: the Merkle trees, the Fiat-Shamir
+transcript and the proof-of-work grind).
 """
 
 from __future__ import annotations
@@ -13,8 +13,8 @@ from dataclasses import dataclass, field
 
 from ..fri import FriConfig
 
-# The in-circuit and the transcript hasher of every port circuit.
-HASHER = "poseidon"
+ALGEBRAIC_HASHERS = ("poseidon", "poseidon2")
+TRANSCRIPT_HASHERS = ("poseidon", "keccak")
 
 
 @dataclass(frozen=True)
@@ -28,10 +28,37 @@ class CircuitConfig:
     # many degree-n chunks
     max_quotient_degree_factor: int = 8
     fri: FriConfig = field(default_factory=FriConfig)
+    # in-circuit ("inner") algebraic hasher: "poseidon" | "poseidon2"
+    algebraic_hasher: str = "poseidon"
+    # transcript / Merkle ("outer") hasher: "poseidon" | "keccak", the
+    # KeccakGoldilocksConfig slot the reference proves Keccak circuits under
+    transcript_hasher: str = "poseidon"
+
+    def __post_init__(self):
+        if self.algebraic_hasher not in ALGEBRAIC_HASHERS:
+            raise ValueError(f"algebraic_hasher {self.algebraic_hasher!r} is not one of "
+                             f"{ALGEBRAIC_HASHERS}")
+        if self.transcript_hasher not in TRANSCRIPT_HASHERS:
+            raise ValueError(f"transcript_hasher {self.transcript_hasher!r} is not one of "
+                             f"{TRANSCRIPT_HASHERS}")
+
+    def hasher_module(self):
+        from ..hashes import poseidon, poseidon2
+        return poseidon2 if self.algebraic_hasher == "poseidon2" else poseidon
+
+    def transcript_module(self):
+        from ..hashes import keccak_hash, poseidon
+        return keccak_hash if self.transcript_hasher == "keccak" else poseidon
 
     @staticmethod
     def standard_recursion_config() -> "CircuitConfig":
         return CircuitConfig()
+
+    @staticmethod
+    def keccak_config() -> "CircuitConfig":
+        """KeccakGoldilocksConfig: the Keccak transcript and Merkle hasher,
+        Poseidon in-circuit (the reference's Keccak-256 circuits)."""
+        return CircuitConfig(transcript_hasher="keccak")
 
     @staticmethod
     def standard_ecc_config() -> "CircuitConfig":
@@ -42,6 +69,12 @@ class CircuitConfig:
     @staticmethod
     def wide_ecc_config() -> "CircuitConfig":
         return CircuitConfig(num_wires=234, num_routed_wires=80)
+
+    @staticmethod
+    def poseidon2_config() -> "CircuitConfig":
+        """standard_recursion_config with Poseidon2 as the in-circuit
+        hasher (the Poseidon2GoldilocksConfig slot)."""
+        return CircuitConfig(algebraic_hasher="poseidon2")
 
     @staticmethod
     def test_config() -> "CircuitConfig":

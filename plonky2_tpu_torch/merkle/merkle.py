@@ -1,12 +1,14 @@
-"""Cap-rooted Merkle commitments over Poseidon, on torch tensors.
+"""Cap-rooted Merkle commitments on torch tensors.
 
 Counterpart of `plonky2_tpu/merkle/merkle.py`.  Leaves live as a [C, L]
 column matrix (the layout polynomial oracles already have), leaf hashing
 is the lanes-first sponge, each internal level one batched two_to_one over
-[4, L/2^k] digests; every permutation runs on the tensors' device (kernel
-K1 on the card).  The tree is truncated at `cap_height`; the cap is the
-vector of 2^cap_height digests.  Openings are one device gather per tree
-and one host transfer; verification is the host scalar path.
+[4, L/2^k] digests; every permutation runs on the tensors' device.  The
+hasher is the config's transcript hasher: Poseidon (kernel K1 on the card)
+or `hashes.keccak_hash` (plain torch).  The tree is truncated at
+`cap_height`; the cap is the vector of 2^cap_height digests.  Openings are
+one device gather per tree and one host transfer; verification is the host
+scalar path.
 """
 
 from __future__ import annotations
@@ -18,13 +20,14 @@ import torch
 
 from ..field import gl
 from ..hashes import poseidon
+from ..utils.timing import timed_span
 
 
-def _merkle_levels(leaves_cols, cap_height: int):
-    levels = [poseidon.hash_or_noop_cols(leaves_cols)]
+def _merkle_levels(leaves_cols, cap_height: int, hasher):
+    levels = [hasher.hash_or_noop_cols(leaves_cols)]
     while levels[-1].shape[1] > (1 << cap_height):
         cur = levels[-1]
-        levels.append(poseidon.two_to_one_cols(cur[:, 0::2], cur[:, 1::2]))
+        levels.append(hasher.two_to_one_cols(cur[:, 0::2], cur[:, 1::2]))
     return levels
 
 
@@ -39,8 +42,9 @@ class MerkleTree:
     _cap_host_cache: list | None = None
 
     @staticmethod
-    def build_cols(leaves_cols, cap_height: int) -> "MerkleTree":
-        """leaves_cols: [C, L] — one leaf per column."""
+    def build_cols(leaves_cols, cap_height: int, hasher) -> "MerkleTree":
+        """leaves_cols: [C, L] — one leaf per column; `hasher` is the
+        config's transcript module (`CircuitConfig.transcript_module()`)."""
         C, L = leaves_cols.shape
         if L & (L - 1) or (1 << cap_height) > L:
             raise ValueError(f"need a power-of-2 leaf count >= 2^cap_height, "
@@ -48,13 +52,16 @@ class MerkleTree:
         # Columns are padded to the sponge rate, as in the JAX package (it
         # shares compiled leaf-hash kernels that way); the zero rows are
         # bound by the commitment and ignored by every consumer.
-        if C > poseidon.HASH_OUT and C % poseidon.RATE:
-            pad = poseidon.RATE - C % poseidon.RATE
+        if C > hasher.HASH_OUT and C % hasher.RATE:
+            pad = hasher.RATE - C % hasher.RATE
             leaves_cols = torch.cat(
                 [leaves_cols, torch.zeros((pad, L), dtype=leaves_cols.dtype,
                                           device=leaves_cols.device)], dim=0)
-        return MerkleTree(leaves=leaves_cols, cap_height=cap_height,
-                          levels=_merkle_levels(leaves_cols, cap_height))
+        # the span names the hasher's module: "poseidon" or "keccak_hash"
+        with timed_span(f"Merkle tree ({hasher.__name__.rsplit('.', 1)[-1]}, "
+                        f"[{leaves_cols.shape[0]}, {L}] leaves)"):
+            levels = _merkle_levels(leaves_cols, cap_height, hasher)
+        return MerkleTree(leaves=leaves_cols, cap_height=cap_height, levels=levels)
 
     @property
     def cap(self):
@@ -92,14 +99,14 @@ def _gather_openings(leaves_cols, levels, indices):
 
 
 def verify_merkle_proof_s(leaf_values: list[int], index: int, cap: list[list[int]],
-                          siblings: list[list[int]]) -> bool:
+                          siblings: list[list[int]], hasher) -> bool:
     """Scalar verification: recompute the path and compare the cap entry."""
-    h = poseidon.hash_or_noop_s(leaf_values)
+    h = hasher.hash_or_noop_s(leaf_values)
     idx = index
     for sib in siblings:
         if idx & 1:
-            h = poseidon.two_to_one_s(sib, h)
+            h = hasher.two_to_one_s(sib, h)
         else:
-            h = poseidon.two_to_one_s(h, sib)
+            h = hasher.two_to_one_s(h, sib)
         idx >>= 1
     return h == list(cap[idx])

@@ -5,9 +5,9 @@ pad to a power of two with noops, group gates into selector polynomials,
 pack per-gate constants into constant polynomials, resolve the
 copy-constraint union-find into sigma polynomials (one `index_select` of
 the label table), LDE + Merkle-commit the constants/sigmas oracle through
-`lde_from_values_rev_auto` (kernel K2 or K3 on the card), and freeze the
-witness-generator schedule.  Every tensor of `ProverData` lives on the
-device given to `compile_circuit`.
+`lde_from_values_rev_auto` (kernel K2 or K3 on the card) and the config's
+transcript hasher, and freeze the witness-generator schedule.  Every tensor
+of `ProverData` lives on the device given to `compile_circuit`.
 """
 
 from __future__ import annotations
@@ -19,7 +19,6 @@ import torch
 
 from ..field import gl
 from ..gates import NoopGate, PublicInputGate
-from ..hashes import poseidon
 from ..merkle import MerkleTree
 from ..ntt import host_powers, lde_from_values_rev_auto
 from ..utils.device import DEFAULT_DEVICE, resolve_device
@@ -142,12 +141,17 @@ def _sigma_polys(perm: np.ndarray, k_is: list, degree_bits: int, device):
 
 
 def commit_constants_sigmas(sel_vals, const_vals, sigma_vals, config):
-    """[selectors | constants | sigmas] -> (coeffs, LDE, Merkle tree)."""
+    """[selectors | constants | sigmas] -> (coeffs, LDE, Merkle tree under
+    the config's transcript hasher).  The build and the load both commit
+    here (the JAX package's load commits with Poseidon whatever the config,
+    `plonky2_tpu/serialization/prover_serde.py:182`; the port does not copy
+    that)."""
     from ..utils import timed_span
     cs_vals = torch.cat([sel_vals, const_vals, sigma_vals], dim=0)
     with timed_span("constants/sigmas LDE + Merkle commit"):
         cs_coeffs, cs_lde = lde_from_values_rev_auto(cs_vals, config.fri.rate_bits)
-        cs_tree = MerkleTree.build_cols(cs_lde, config.fri.cap_height)
+        cs_tree = MerkleTree.build_cols(cs_lde, config.fri.cap_height,
+                                        config.transcript_module())
         cs_tree.cap_host()
     return cs_coeffs, cs_lde, cs_tree
 
@@ -256,8 +260,8 @@ def circuit_data(common, selector_polys, constant_polys, sigma_polys, instances,
         for r, (g, consts) in enumerate(instances):
             generators.extend(g.generators(r, consts))
 
-    def _pi_fn(vals, row=pi_gate_row):
-        h = poseidon.hash_no_pad_s([v % gl.P for v in vals])
+    def _pi_fn(vals, row=pi_gate_row, hasher=common.config.hasher_module()):
+        h = hasher.hash_no_pad_s([v % gl.P for v in vals])
         return [(Wire(row, i), h[i]) for i in range(4)]
 
     generators.append(LambdaGenerator(

@@ -11,6 +11,11 @@ Counterpart of `plonky2_tpu/prove/prover.py` (`_make_kernels` and
 5. openings at zeta           device: plain torch
 6. FRI                        device: plain torch folds, K1 trees and grind
 
+Every Merkle tree, the transcript and the grind use the config's
+transcript hasher: Poseidon (K1 under each tree and the grind) or Keccak
+(plain torch in their place); the public-input hash uses its in-circuit
+hasher.
+
 The Pallas kernels of the JAX package are ported as hand-written CUDA (K1,
 K2, K3); the phases that XLA compiled there (quotient, Z, composite, fold,
 openings) start here as plain torch ops.  Host and device meet only at
@@ -25,7 +30,6 @@ import torch
 
 from ..field import ext, gl
 from ..fri import fri_prove
-from ..hashes import poseidon
 from ..merkle import MerkleTree
 from ..ntt import (COSET_SHIFT, eval_polys_at_ext, host_powers,
                    lde_from_values_rev_auto)
@@ -324,7 +328,8 @@ def _prove_impl(pd, inputs: dict) -> Proof:
     # ---- 1. witness ----
     wires_host, store = witness_matrix(pd, inputs)
     pi_values = [store.get(t) for t in pd.pi_targets]
-    pi_hash = poseidon.hash_no_pad_s(pi_values)
+    pi_hash = cfg.hasher_module().hash_no_pad_s(pi_values)
+    th = cfg.transcript_module()
 
     # ---- 2. commit wires ----
     _wb = 8 * cfg.num_wires * (2 * n + N)        # read values, write c + LDE
@@ -334,10 +339,10 @@ def _prove_impl(pd, inputs: dict) -> Proof:
             wires = gl.to_tensor(wires_host, dev)
             wires_coeffs, wires_lde = lde_from_values_rev_auto(wires, rate)
         with timed_span("wire Merkle tree (leaf hash + levels)", nbytes=_mb):
-            wires_tree = MerkleTree.build_cols(wires_lde, fri_cfg.cap_height)
+            wires_tree = MerkleTree.build_cols(wires_lde, fri_cfg.cap_height, th)
             wires_tree.cap_host()
 
-    ch = Challenger()
+    ch = Challenger(th)
     ch.observe_cap(pd.cs_tree.cap_host())
     ch.observe_elements(pi_hash)
     ch.observe_cap(wires_tree.cap_host())
@@ -353,7 +358,7 @@ def _prove_impl(pd, inputs: dict) -> Proof:
         zs_pp_vals = kernels.z_phase(wires[:nr], pd.sigma_polys, k_arr, g_pows,
                                      betas, gammas)
         zs_pp_coeffs, zs_pp_lde = lde_from_values_rev_auto(zs_pp_vals, rate)
-        zs_tree = MerkleTree.build_cols(zs_pp_lde, fri_cfg.cap_height)
+        zs_tree = MerkleTree.build_cols(zs_pp_lde, fri_cfg.cap_height, th)
         zs_tree.cap_host()
     ch.observe_cap(zs_tree.cap_host())
     alphas = ch.get_n_challenges(nc)
@@ -386,7 +391,7 @@ def _prove_impl(pd, inputs: dict) -> Proof:
         q_polys, q_lde = kernels.quotient_phase(
             wires_lde, sel_lde, const_lde, sigma_lde, zs_pp_lde, x_lde, zh_inv,
             l1, k_arr, betas, gammas, alphas, pi_hash, sinv_pows)
-        q_tree = MerkleTree.build_cols(q_lde, fri_cfg.cap_height)
+        q_tree = MerkleTree.build_cols(q_lde, fri_cfg.cap_height, th)
         q_tree.cap_host()
     ch.observe_cap(q_tree.cap_host())
     zeta = ch.get_ext_challenge()

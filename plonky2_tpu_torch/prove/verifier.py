@@ -13,7 +13,6 @@ from ..field import ext, gl
 from ..fri.fri import fri_verify, require, rev_bits
 from ..gates.base import EvalVars, ExtAlg
 from ..gates.lookup import lookup_info
-from ..hashes import poseidon
 from ..ntt import COSET_SHIFT
 from ..transcript import Challenger
 from .proof import Proof
@@ -32,10 +31,11 @@ def verify(vd, proof: Proof) -> None:
 
     require(len(proof.public_inputs) == common.num_public_inputs,
             "public input count")
-    pi_hash = poseidon.hash_no_pad_s([v % gl.P for v in proof.public_inputs])
+    pi_hash = cfg.hasher_module().hash_no_pad_s(
+        [v % gl.P for v in proof.public_inputs])
 
     # ---- challenger replay (the prover's observe order) ----
-    ch = Challenger()
+    ch = Challenger(cfg.transcript_module())
     ch.observe_cap(vd.cs_cap)
     ch.observe_elements(pi_hash)
     ch.observe_cap(proof.wires_cap)

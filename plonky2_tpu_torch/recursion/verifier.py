@@ -3,8 +3,11 @@
 Host copy of `plonky2_tpu/recursion/verifier.py` (plonky2's `verify_proof`
 circuit; config 5 verifies four zkDSA proofs with it).  Every builder call
 is made in the JAX module's order: row order decides the graph and the
-proof bytes.  The port hashes with Poseidon only (ir/config.py `HASHER`),
-so the JAX module's checks that both configs use it have no counterpart.
+proof bytes.  The transcript is replayed with the Poseidon sponge, so the
+inner circuit must use Poseidon as both hashers and the outer one as its
+in-circuit hasher (as in plonky2, whose KeccakGoldilocksConfig proofs are
+not recursively verifiable); other configs raise, where the JAX module
+asserts.
 
 Design: the host verifier (prove/verifier.py + fri/fri.py) is the spec;
 this module replays it over targets:
@@ -267,6 +270,10 @@ def verify_proof_circuit(b, vd, pt: ProofTarget) -> None:
     common = vd.common
     cfg = common.config
     fri_cfg = cfg.fri
+    if not cfg.algebraic_hasher == b.config.algebraic_hasher == "poseidon":
+        raise ValueError(
+            "recursive verification replays the transcript with the Poseidon "
+            "sponge; inner and outer configs must both use it")
     n = 1 << common.degree_bits
     nc = cfg.num_challenges
     nr = cfg.num_routed_wires
@@ -480,6 +487,9 @@ def add_proof_verification(b, vd) -> ProofTarget:
     """Convenience: allocate targets, emit the verification constraints,
     return the ProofTarget; caller binds a concrete proof with
     `set_proof_witness`."""
+    if vd.common.config.transcript_hasher != "poseidon":
+        raise ValueError(
+            "recursive verification requires the Poseidon transcript hasher")
     pt = add_virtual_proof_target(b, vd.common)
     verify_proof_circuit(b, vd, pt)
     return pt

@@ -5,8 +5,9 @@ JAX package, so a proof or a verifier key written by either package reads
 in the other.  Every gate serializes as its `key()` string and is rebuilt
 through `gate_from_key`, whose registry holds exactly the ported gates; a
 gate that the JAX package registers but the port does not carry yet raises
-NotImplementedError naming it.  The transcript and in-circuit hashers are
-Poseidon, written as the name "poseidon" twice.
+NotImplementedError naming it.  The config's two hashers are written by
+name: the in-circuit one ("poseidon" or "poseidon2"), then the transcript
+one ("poseidon" or "keccak").
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import re
 
 from ..fri.fri import (FriConfig, FriInitialOpening, FriProof, FriQueryRound,
                        FriQueryStep)
-from ..ir.config import HASHER, CircuitConfig
+from ..ir.config import ALGEBRAIC_HASHERS, TRANSCRIPT_HASHERS, CircuitConfig
 from ..prove.compile import SelectorInfo, VerifierData, common_data
 from ..prove.proof import OpeningSet, Proof
 from .buffer import Buffer
@@ -25,12 +26,12 @@ from .buffer import Buffer
 # ------------------------------------------------------------------
 
 # Gates of the JAX registry that the port does not carry yet.
-NOT_PORTED = ("Lookup", "LookupTable", "Poseidon2")
+NOT_PORTED = ("Lookup", "LookupTable")
 
 
 def _registry():
     from ..gates import (ArithmeticGate, BaseSumGate, ConstantGate, NoopGate,
-                         PoseidonGate, PublicInputGate)
+                         Poseidon2Gate, PoseidonGate, PublicInputGate)
     from ..gates.comparison import ComparisonGate, U32SubtractionGate
     from ..gates.coset_interpolation import CosetInterpolationGate
     from ..gates.exponentiation import ExponentiationGate
@@ -49,6 +50,7 @@ def _registry():
         "PublicInput": lambda a: PublicInputGate(),
         "Noop": lambda a: NoopGate(),
         "Poseidon": lambda a: PoseidonGate(),
+        "Poseidon2": lambda a: Poseidon2Gate(),
         "U32Arithmetic": lambda a: U32ArithmeticGate(num_ops=a["num_ops"]),
         "U32AddMany": lambda a: U32AddManyGate(a["num_addends"], a["num_ops"]),
         "U32RangeCheck": lambda a: U32RangeCheckGate(num_ops=a["num_ops"]),
@@ -196,24 +198,23 @@ def _write_config(buf: Buffer, cfg: CircuitConfig) -> None:
     for v in (f.rate_bits, f.cap_height, f.proof_of_work_bits,
               f.num_query_rounds, f.arity_bits, f.final_poly_bits):
         buf.write_u32(v)
-    buf.write_str(HASHER)          # in-circuit hasher
-    buf.write_str(HASHER)          # transcript / Merkle hasher
+    buf.write_str(cfg.algebraic_hasher)
+    buf.write_str(cfg.transcript_hasher)
 
 
 def _read_config(buf: Buffer) -> CircuitConfig:
     vals = [buf.read_u32() for _ in range(6)]
     fvals = [buf.read_u32() for _ in range(6)]
-    for role in ("in-circuit", "transcript"):
-        name = buf.read_str()
-        if name != HASHER:
-            raise NotImplementedError(
-                f"{role} hasher {name!r} is not ported to plonky2_tpu_torch "
-                f"yet (only {HASHER!r})")
+    hasher = buf.read_str()
+    t_hasher = buf.read_str()
+    if hasher not in ALGEBRAIC_HASHERS or t_hasher not in TRANSCRIPT_HASHERS:
+        raise ValueError(f"unknown hashers {hasher!r}, {t_hasher!r}")
     return CircuitConfig(num_wires=vals[0], num_routed_wires=vals[1],
                          num_constants=vals[2], num_challenges=vals[3],
                          security_bits=vals[4],
                          max_quotient_degree_factor=vals[5],
-                         fri=FriConfig(*fvals))
+                         fri=FriConfig(*fvals), algebraic_hasher=hasher,
+                         transcript_hasher=t_hasher)
 
 
 def serialize_verifier_data(vd: VerifierData) -> bytes:

@@ -1,4 +1,4 @@
-"""Fiat-Shamir challenger: Poseidon duplex sponge over Goldilocks.
+"""Fiat-Shamir challenger: a duplex sponge over Goldilocks.
 
 Host copy of `plonky2_tpu/transcript/challenger.py` (plonky2's
 `Challenger` semantics):
@@ -11,18 +11,22 @@ Host copy of `plonky2_tpu/transcript/challenger.py` (plonky2's
 * Extension elements are observed/drawn as their 2 base coefficients;
   Merkle caps as the flattened digest elements.
 
+The sponge is the config's transcript hasher, `hashes.poseidon` or
+`hashes.keccak_hash` (KeccakGoldilocksConfig), which every caller passes
+(`CircuitConfig.transcript_module()`); both modules have the same
+surface (`permute_s`, WIDTH, RATE, HASH_OUT).
+
 The FRI proof-of-work grind (`fri.grind`) evaluates the "observe(w);
 get_challenge()" transition for many w at once and depends on this rule.
 """
 
 from __future__ import annotations
 
-from ..hashes import poseidon
-
 
 class Challenger:
-    def __init__(self):
-        self.sponge_state = [0] * poseidon.WIDTH
+    def __init__(self, hasher):
+        self.hasher = hasher
+        self.sponge_state = [0] * hasher.WIDTH
         self.input_buffer: list[int] = []
         self.output_buffer: list[int] = []
 
@@ -31,7 +35,7 @@ class Challenger:
     def observe_element(self, x: int):
         self.output_buffer.clear()          # pending inputs invalidate outputs
         self.input_buffer.append(x)
-        if len(self.input_buffer) == poseidon.RATE:
+        if len(self.input_buffer) == self.hasher.RATE:
             self._duplex()
 
     def observe_elements(self, xs):
@@ -42,7 +46,7 @@ class Challenger:
         self.observe_elements(x)
 
     def observe_hash(self, h):
-        if len(h) != poseidon.HASH_OUT:
+        if len(h) != self.hasher.HASH_OUT:
             raise ValueError(f"digest has {len(h)} elements")
         self.observe_elements(h)
 
@@ -55,8 +59,8 @@ class Challenger:
     def _duplex(self):
         buf = self.input_buffer
         self.sponge_state[: len(buf)] = buf
-        self.sponge_state = poseidon.permute_s(self.sponge_state)
-        self.output_buffer = self.sponge_state[: poseidon.RATE].copy()
+        self.sponge_state = self.hasher.permute_s(self.sponge_state)
+        self.output_buffer = self.sponge_state[: self.hasher.RATE].copy()
         self.input_buffer = []
 
     # ---------------- challenges ----------------
@@ -75,7 +79,7 @@ class Challenger:
         return (c0, c1)
 
     def clone(self) -> "Challenger":
-        c = Challenger()
+        c = Challenger(self.hasher)
         c.sponge_state = self.sponge_state.copy()
         c.input_buffer = self.input_buffer.copy()
         c.output_buffer = self.output_buffer.copy()

@@ -1,7 +1,7 @@
 """Write tests/torch_port_vectors.json: the JAX package's proof digests
 that the PyTorch port (`plonky2_tpu_torch`) must reproduce byte for byte.
 
-Twelve circuits, built, proved and verified with the JAX package on the
+Sixteen entries, built, proved and verified with the JAX package on the
 CPU:
 
 * `tiny`: the golden tiny circuit of tests/test_golden_vectors.py (its
@@ -32,7 +32,21 @@ CPU:
   the inner circuit of tests/test_recursion_e2e.py and the 2^12-row
   circuit verifying its proof; `bench.circuits.build_aggregation(4)`, the
   zkDSA circuit with its four proofs (their digests in draw order) and
-  the 2^13-row circuit verifying all four, both under `test_config`.
+  the 2^13-row circuit verifying all four, both under `test_config`;
+* `small_keccak`, `{"round": ..., "chain": ...}`: the u64 xor/rotate/chi
+  circuit of tests/test_keccak.py under `test_config` (inputs from seed
+  0xEC), and the 20-step `two_to_one` chain of tests/test_keccak_config.py
+  under `keccak_config` (Keccak Merkle trees, transcript and grind);
+* `small_poseidon2`: one `two_to_one` under `test_config` with the
+  Poseidon2 in-circuit hasher (tests/test_poseidon2.py), inputs from seed
+  0xB052;
+* `config1_p2`: config 1's chain under `poseidon2_config` (every
+  `two_to_one` a Poseidon2Gate row; Poseidon Merkle trees);
+* `keccak4`: the reference's 4-block Keccak-256 circuit
+  (keccak256.rs:256-338) under `keccak_config`, 2^15 rows, proved for the
+  four Ethereum trie nodes of `plonky2_tpu_torch.bench.circuits.
+  ETH_LONG_VECTORS`; its `public_inputs`, `proof_len`, `proof_sha256` and
+  `wire_matrix_sha256` are lists, one item per node.
 
 For each: degree_bits, num_gates, the constants/sigmas cap, the public
 inputs, the proof length, the proof sha256, the sha256 of the
@@ -42,7 +56,8 @@ serialized verifier key, `prover_data_sha256` (the sha256 of
 wire matrix, little-endian, row by row, as the JAX prover's phase 1
 computes it: `generate_witness_tape`, `scatter`, then every gate's
 batched `aux_fill`).  `config4`, `small_ecc` and the two outer circuits
-also carry `graph_sha256` (`plonky2_tpu_torch.ir.digest.graph_digest`): a
+also carry `graph_sha256` (`plonky2_tpu_torch.ir.digest.graph_digest`; `keccak4`
+too): a
 digest of the builder's graph that a test can recompute from the port's
 builder without a build.  The whole
 run takes about 50 minutes on the CPU: the JAX package proves configs 1,
@@ -57,8 +72,10 @@ witness without proving: every field it recomputes that the fixture
 already has must equal the fixture's, and their proof fields are kept
 from it (this adds a field that needs only the build and the witness,
 such as the verifier-key, prover-data and wire-matrix digests, without
-the long proves); it does not apply to the two recursion entries.
-Config 5's entries took about 20 minutes, each name in its own process.
+the long proves); it does not apply to the entries of `OWN_RECORD`.
+Config 5's entries took about 20 minutes, each name in its own process;
+`small_keccak`, `small_poseidon2`, `config1_p2` and `keccak4` 8.5, 2.3,
+7.0 and 8.5 minutes, each in its own process.
 """
 from __future__ import annotations
 
@@ -82,10 +99,10 @@ def tiny(ir):
     return b, {x: 111, y: 222}
 
 
-def small_chain(ir, degree_bits: int = 6):
-    """Poseidon two_to_one chain under test_config, sized like
-    `build_poseidon_chain` (8 rows of margin below 2^degree_bits)."""
-    b = ir.CircuitBuilder(ir.CircuitConfig.test_config())
+def small_chain(ir, degree_bits: int = 6, config=None):
+    """Poseidon two_to_one chain under test_config (or `config`), sized
+    like `build_poseidon_chain` (8 rows of margin below 2^degree_bits)."""
+    b = ir.CircuitBuilder(config or ir.CircuitConfig.test_config())
     xs = [b.add_virtual_target() for _ in range(4)]
     cur = xs
     while b.num_gates() < (1 << degree_bits) - 8:
@@ -249,6 +266,119 @@ def recursion_inner(ir):
     return b, {x: 3, y: 5}
 
 
+def _module(ir, name: str):
+    """The module `name` of the package that `ir` belongs to."""
+    import importlib
+    return importlib.import_module(ir.__name__.rsplit(".", 1)[0] + "." + name)
+
+
+def keccak_round(ir):
+    """The u64 xor-many / rotate / chi circuit of tests/test_keccak.py
+    `test_one_theta_chi_round_circuit` under test_config."""
+    import random
+    _module(ir, "gadgets.keccak")          # attaches the u32 and u64 API
+    rng = random.Random(0xEC)
+    b = ir.CircuitBuilder(ir.CircuitConfig.test_config())
+    lanes = [[b.add_virtual_u32_target(), b.add_virtual_u32_target()]
+             for _ in range(5)]
+    xm = b.unsafe_xor_many_u64(lanes)
+    rot = b.lrot_u64(xm, 1)
+    chi = b.xor_u64(lanes[0], b.and_u64(lanes[2], b.not_u64(lanes[1])))
+    for pair in [xm, rot, chi]:
+        b.register_public_input(pair[0].target)
+        b.register_public_input(pair[1].target)
+    inputs = {}
+    for lane in lanes:
+        v = rng.randrange(1 << 64)
+        inputs[lane[0].target] = v & 0xFFFFFFFF
+        inputs[lane[1].target] = v >> 32
+    return b, inputs
+
+
+def keccak_chain(ir):
+    """The 20-step two_to_one chain of tests/test_keccak_config.py under
+    keccak_config."""
+    b = ir.CircuitBuilder(ir.CircuitConfig.keccak_config())
+    xs = [b.add_virtual_target() for _ in range(4)]
+    cur = xs
+    for _ in range(20):
+        cur = b.two_to_one(cur, cur)
+    for t in cur:
+        b.register_public_input(t)
+    return b, {xs[i]: i + 1 for i in range(4)}
+
+
+def small_poseidon2(ir):
+    """tests/test_poseidon2.py `test_poseidon2_circuit_oracle`: one
+    two_to_one under test_config with the Poseidon2 in-circuit hasher."""
+    import dataclasses
+    import random
+    rng = random.Random(0xB052)
+    P = (1 << 64) - (1 << 32) + 1
+    cfg = dataclasses.replace(ir.CircuitConfig.test_config(),
+                              algebraic_hasher="poseidon2")
+    b = ir.CircuitBuilder(cfg)
+    x = b.add_virtual_targets(4)
+    y = b.add_virtual_targets(4)
+    b.register_public_inputs(b.two_to_one(x, y))
+    return b, {t: rng.randrange(P) for t in x + y}
+
+
+def keccak_circuit(ir, blocks: int, config):
+    """The reference's Keccak-256 circuit (keccak256.rs:256-338): a
+    `blocks`-block hash input, `hash_keccak256`, the 8 output limbs
+    public.  -> (builder, hash input target, the gadget module)."""
+    kk = _module(ir, "gadgets.keccak")
+    b = ir.CircuitBuilder(config)
+    ht = b.add_virtual_hash_input_target(blocks, kk.RATE_BITS)
+    out = b.hash_keccak256(ht)
+    for limb in out.limbs[:8]:
+        b.register_public_input(limb.target)
+    return b, ht, kk
+
+
+def small_keccak(ir) -> dict:
+    return {"round": _record(*keccak_round(ir)),
+            "chain": _record(*keccak_chain(ir))}
+
+
+def keccak4(ir) -> dict:
+    """The 4-block Keccak-256 circuit under keccak_config, proved for each
+    Ethereum trie node of ETH_LONG_VECTORS; each proof's public inputs, as
+    little-endian u32s, are the node's digest."""
+    from plonky2_tpu.serialization import serialize_proof
+    from plonky2_tpu_torch.bench.circuits import ETH_LONG_VECTORS
+    from plonky2_tpu_torch.ir.digest import graph_digest
+    b, ht, kk = keccak_circuit(ir, 4, ir.CircuitConfig.keccak_config())
+    num_gates, digest = b.num_gates(), graph_digest(b)
+    data = b.build()
+    witnesses = []
+    for hx, _ in ETH_LONG_VECTORS:
+        inputs: dict = {}
+        kk.set_keccak256_input_target(inputs, ht, bytes.fromhex(hx))
+        witnesses.append(inputs)
+    out, _ = _record_data(data, num_gates, witnesses[0], prove=False,
+                          digest=digest)
+    lists: dict = {k: [] for k in ("wire_matrix_sha256", "public_inputs",
+                                   "proof_len", "proof_sha256")}
+    for inputs, (hx, want) in zip(witnesses, ETH_LONG_VECTORS):
+        lists["wire_matrix_sha256"].append(
+            wire_matrix_sha256(wire_matrix(data.prover, inputs)))
+        proof = data.prove(inputs)
+        data.verify(proof)
+        pi_hex = b"".join(int(v).to_bytes(4, "little")
+                          for v in proof.public_inputs).hex()
+        assert pi_hex == want, hx
+        raw = serialize_proof(proof)
+        lists["public_inputs"].append([int(x) for x in proof.public_inputs])
+        lists["proof_len"].append(len(raw))
+        lists["proof_sha256"].append(hashlib.sha256(raw).hexdigest())
+        print(f"keccak4: node {len(lists['proof_len'])} proved",
+              file=sys.stderr, flush=True)
+    out.update(lists)
+    return out
+
+
 GRAPH_DIGESTED = ("config4", "small_ecc", "small_recursion", "config5")
 
 
@@ -398,12 +528,17 @@ def _circuits(ir):
         "small_ecc": lambda: small_ecc(ir),
         "config4": lambda: build_ecdsa(1)[:2],
         "small_ext": lambda: small_ext(ir),
+        "small_poseidon2": lambda: small_poseidon2(ir),
+        "config1_p2": lambda: small_chain(ir, 12,
+                                          ir.CircuitConfig.poseidon2_config()),
     }
 
 
-# Entries recorded as {"inner": ..., "outer": ...} by a function of their
-# own (an inner circuit proved, then an outer circuit verifying it).
-RECURSIVE = {"small_recursion": small_recursion, "config5": config5}
+# Entries recorded by a function of their own: {"inner": ..., "outer": ...}
+# (an inner circuit proved, then an outer circuit verifying it), two small
+# Keccak circuits, or one circuit proved for several witnesses.
+OWN_RECORD = {"small_recursion": small_recursion, "config5": config5,
+             "small_keccak": small_keccak, "keccak4": keccak4}
 
 
 def load_fixture() -> dict:
@@ -422,13 +557,13 @@ def compute_vectors(only=None, build_only=()) -> dict:
     circuits = _circuits(ir)
     chosen = set(only or ()) | set(build_only)
     out = load_fixture() if chosen else {}
-    for name, make in {**circuits, **RECURSIVE}.items():
+    for name, make in {**circuits, **OWN_RECORD}.items():
         if chosen and name not in chosen:
             continue
-        if name in RECURSIVE:
+        if name in OWN_RECORD:
             if name in build_only:
                 raise SystemExit(f"{name}: --build-only does not apply")
-            out[name] = RECURSIVE[name](ir)
+            out[name] = OWN_RECORD[name](ir)
             print(f"{name}: done", file=sys.stderr, flush=True)
             continue
         b, inputs = make()

@@ -174,7 +174,7 @@ def test_cols_sponges_equal_jax(C):
 
 def test_merkle_cap_and_openings_equal_jax():
     leaves = rand_u64(20, 512)
-    tree = MerkleTree.build_cols(gl.to_tensor(leaves), 2)
+    tree = MerkleTree.build_cols(gl.to_tensor(leaves), 2, poseidon)
     jtree = JMerkleTree.build_cols(jnp.asarray(leaves), 2)
     assert tree.cap_host() == jtree.cap_host()
     idx = np.asarray([0, 1, 5, 255, 256, 511, 77], dtype=np.int64)
@@ -185,7 +185,7 @@ def test_merkle_cap_and_openings_equal_jax():
     assert lv.shape == (7, 24) and sib.shape == (7, 7, 4)   # 20 cols padded to 24
     for q, i in enumerate(idx):
         assert verify_merkle_proof_s([int(v) for v in lv[q]], int(i),
-                                     tree.cap_host(), sib[q].tolist())
+                                     tree.cap_host(), sib[q].tolist(), poseidon)
     bad = [int(v) for v in lv[0]]
     bad[3] = (bad[3] + 1) % jgl.P
-    assert not verify_merkle_proof_s(bad, 0, tree.cap_host(), sib[0].tolist())
+    assert not verify_merkle_proof_s(bad, 0, tree.cap_host(), sib[0].tolist(), poseidon)

@@ -34,6 +34,7 @@ from plonky2_tpu.ir import CircuitConfig as JConfig
 from plonky2_tpu.serialization import deserialize_proof
 from plonky2_tpu_torch import convert
 from plonky2_tpu_torch.bench import build_poseidon_chain
+from plonky2_tpu_torch.hashes import poseidon
 from plonky2_tpu_torch.ir import CircuitBuilder, CircuitConfig
 from plonky2_tpu_torch.serialization import serialize_proof
 
@@ -150,7 +151,6 @@ def _helpers_circuit(builder_cls, config_cls):
 
 
 def test_builder_helpers_match_jax_graph():
-    from plonky2_tpu_torch.hashes import poseidon
     jb, _ = _helpers_circuit(JBuilder, JConfig)
     b, inputs = _helpers_circuit(CircuitBuilder, CircuitConfig)
     assert [(g.key(), c) for g, c in b.gate_instances] == \
@@ -189,7 +189,7 @@ def test_grind_witness_independent_of_batch_and_equal_jax():
     from plonky2_tpu.transcript import Challenger as JChallenger
     from plonky2_tpu_torch.fri import grind
     from plonky2_tpu_torch.transcript import Challenger
-    ch, jch = Challenger(), JChallenger(jpos)
+    ch, jch = Challenger(poseidon), JChallenger(jpos)
     for c in (ch, jch):
         c.observe_elements([5, 2**63 + 7, 11])
     # pow_bits 8: the default batch is 4096; smaller batches span many chunks
@@ -218,7 +218,7 @@ def test_entry_points_default_to_the_card():
         compile_circuit(b)
     assert b.num_gates() == rows and not b._built
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        grind(Challenger(), 8)
+        grind(Challenger(poseidon), 8)
 
 
 def test_poseidon_gate_eval_forms_agree():

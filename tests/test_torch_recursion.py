@@ -43,6 +43,7 @@ from plonky2_tpu_torch import ir, zkaa
 from plonky2_tpu_torch.bench.circuits import AGGREGATION_SEED, aggregation_steps
 from plonky2_tpu_torch.field import gl
 from plonky2_tpu_torch.gadgets.smt import set_hash_witness
+from plonky2_tpu_torch.hashes import poseidon
 from plonky2_tpu_torch.gates import (ArithmeticGate, BaseSumGate, ConstantGate,
                                      EvalVars, ExtAlg, ReducingGate)
 from plonky2_tpu_torch.ir import CircuitBuilder, CircuitConfig
@@ -136,13 +137,13 @@ def test_merkle_proof_circuit():
     L, C, cap_height = 16, 6, 1
     leaves = np.array([[RNG.randrange(gl.P) for _ in range(L)] for _ in range(C)],
                       dtype=np.uint64)
-    tree = MerkleTree.build_cols(gl.to_tensor(leaves), cap_height)
+    tree = MerkleTree.build_cols(gl.to_tensor(leaves), cap_height, poseidon)
     cap = tree.cap_host()
     index = 11
     leaf, sibs = tree.open_many([index])
     leaf = [int(v) for v in leaf[0]]
     siblings = [[int(x) for x in s] for s in sibs[0]]
-    assert verify_merkle_proof_s(leaf, index, cap, siblings)
+    assert verify_merkle_proof_s(leaf, index, cap, siblings, poseidon)
 
     def build(b):
         bits = [b.constant((index >> i) & 1) for i in range(4)]
@@ -157,7 +158,7 @@ def test_merkle_proof_circuit():
 
 def test_recursive_challenger_matches_host():
     def build(b):
-        host = Challenger()
+        host = Challenger(poseidon)
         circ = RecursiveChallenger(b)
         xs = [RNG.randrange(gl.P) for _ in range(13)]  # crosses a duplex
         host.observe_elements(xs)

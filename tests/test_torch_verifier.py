@@ -16,7 +16,8 @@ Exact equality (tolerance 0): integer field arithmetic and byte formats.
 * `serialize_verifier_data` gives each fixture's `verifier_data_sha256`
   (the digest of the JAX build's key), the JAX package reads the port's
   bytes and writes them back unchanged, the port's reader round-trips them,
-  and a gate or hasher the port does not carry raises NotImplementedError;
+  a gate the port does not carry raises NotImplementedError and an unknown
+  hasher name ValueError;
 * no module of the port, and not chip_smoke.py, imports JAX or the JAX
   package.
 """
@@ -74,6 +75,7 @@ GATES = {
     "PublicInput": (gates.PublicInputGate(), jgates.PublicInputGate()),
     "Noop": (gates.NoopGate(), jgates.NoopGate()),
     "Poseidon": (gates.PoseidonGate(), jgates.PoseidonGate()),
+    "Poseidon2": (gates.Poseidon2Gate(), jgates.Poseidon2Gate()),
     "BaseSum": (gates.BaseSumGate(4, 8), JBaseSumGate(4, 8)),
     "U32Arithmetic": (gates.U32ArithmeticGate(3), jarith.U32ArithmeticGate(3)),
     "U32AddMany": (gates.U32AddManyGate(13, 3), jarith.U32AddManyGate(13, 3)),
@@ -224,10 +226,10 @@ def test_verifier_data_bytes_equal_jax_and_roundtrip():
     verify(vd, proof)
 
 
-@pytest.mark.parametrize("key", ["Lookup(num_slots=8)",
-                                 "Poseidon2(width=12)", "LookupTable(num_slots=3)",
+@pytest.mark.parametrize("key", ["Lookup(num_slots=8)", "Lookup(num_slots=1)",
+                                 "LookupTable(num_slots=3)",
                                  "LookupTable(num_slots=16)",
-                                 "Poseidon2(width=8)"])
+                                 "LookupTable(num_slots=1)"])
 def test_unported_gate_keys_raise_not_implemented(key):
     with pytest.raises(NotImplementedError, match=key.split("(")[0]):
         gate_from_key(key)
@@ -240,10 +242,16 @@ def test_gate_registry_and_unported_hasher():
         gate_from_key("Frobnicate(num_ops=2)")
     data, _ = _proof_of("tiny")
     vk = serialize_verifier_data(data.verifier)
+    assert gate_from_key("Poseidon2(width=12)").key() == "Poseidon2(width=12)"
+    with pytest.raises(ValueError, match="registry mismatch"):
+        gate_from_key("Poseidon2(width=8)")
     poseidon = b"\x08\x00\x00\x00poseidon"
     keccak = b"\x06\x00\x00\x00keccak"
-    with pytest.raises(NotImplementedError, match="keccak"):
-        deserialize_verifier_data(vk.replace(poseidon + poseidon, poseidon + keccak, 1))
+    vd = deserialize_verifier_data(vk.replace(poseidon + poseidon, poseidon + keccak, 1))
+    assert vd.common.config.transcript_hasher == "keccak"
+    blake = b"\x06\x00\x00\x00blake3"
+    with pytest.raises(ValueError, match="blake3"):
+        deserialize_verifier_data(vk.replace(poseidon + poseidon, poseidon + blake, 1))
     buf = Buffer()
     buf.write_str("u32 π")
     assert Buffer(buf.bytes()).read_str() == "u32 π"
