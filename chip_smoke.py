@@ -8,9 +8,13 @@ standard_recursion_config, the config-4 circuit (one secp256k1 ECDSA
 verify, 55,421 gates, 2^16 rows, under standard_ecc_config: 136 wires)
 and config 5 (four zkDSA proofs of a 2^2-row circuit and the 2^13-row
 circuit that verifies them in-circuit, both under test_config), config 1
-under poseidon2_config (every two_to_one a Poseidon2Gate row), and the
+under poseidon2_config (every two_to_one a Poseidon2Gate row), the
 reference's 4-block Keccak-256 circuit (24,883 gates, 2^15 rows) under
-keccak_config (Keccak Merkle trees, transcript and grind) — on the card,
+keccak_config (Keccak Merkle trees, transcript and grind), and the two
+lookup circuits: the JAX package's `mixed_small` (u32, xor, a lookup and
+nonnative ops, 2^6 rows under test_config) and `lookup8` (47,616 lookups
+into an 8-bit S-box, 2^13 rows under standard_recursion_config) — on the
+card,
 after checking each hand-written kernel against its plain torch version
 there, and verifies every proof with the port's host verifier:
 
@@ -63,7 +67,18 @@ there, and verifies every proof with the port's host verifier:
                  time each prove spends in Keccak Merkle trees and in the
                  grind, and one plain Keccak permutation over the wires
                  tree's 2^18 leaves
- 14. config 5    `bench.circuits.aggregation_steps`, the code of
+ 14. mixed_small `bench.build_mixed_small()`: the steps of 8 (the graph
+                 digest, the build, the proof bytes, save and load, the
+                 loaded and warm proves, the wire matrix, the verify
+                 step); then K2-rev against the plain LDE at its three
+                 commit shapes (n = 64)
+ 15. lookup8     `bench.build_lookup_bytes(13)`: the steps of 8, each
+                 proof's public inputs S[x_i] for the first four inputs
+                 (S and x_i computed on the host); then K2-rev against the
+                 plain LDE at its three commit shapes (the Z/logUp commit
+                 [34, 2^13]); the time of its Z span (with its logUp
+                 sub-span) beside config 2's, which has the same n
+ 16. config 5    `bench.circuits.aggregation_steps`, the code of
                  `bench.build_aggregation(4)` up to the outer build: the
                  zkDSA circuit built, its four proofs (the JAX seed's keys
                  and messages) made and verified, each equal to the
@@ -72,7 +87,7 @@ there, and verifies every proof with the port's host verifier:
                  shapes (n = 4, read from its common data); then the steps
                  of 8 for the outer circuit of 2^13 rows
 
-Every proof phase (7-14) ends with a verify step: the port's verifier
+Every proof phase (7-16) ends with a verify step: the port's verifier
 accepts the card's proof and rejects it with one public input (the wires
 cap where there is none) or one opening changed, and the verifier key's
 bytes have the fixture's sha256 and read back to the same bytes.
@@ -81,8 +96,8 @@ All checks are exact: field arithmetic has no rounding, so every tolerance
 is 0.  Kernel inputs cover all of [0, p), edge values included.  Kernel
 launch counts are set to 0 just before each main path (a configuration's
 build and first prove (keccak4: its four proves), its load from bytes, and
-config 5's inner circuit, its four proofs and the outer trace) and read
-just after it.
+config 5's inner circuit, its four proofs and the outer trace; mixed_small
+and lookup8 like configs 1-4) and read just after it.
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its 32-bit integer multiplies
 over 64 per clock per SM x 132 SMs x the card's maximum SM clock.  Each
@@ -632,7 +647,7 @@ def read_launches():
             "K2-nat": cuda_lde.LAUNCHES_NAT, "K3": cuda_lde_tiled.LAUNCHES}
 
 
-def phase_config(tag: str, device, build, want: dict):
+def phase_config(tag: str, device, build, want: dict, check=None):
     """Build, witness and prove one configuration on the card; save the
     built circuit to bytes and load it back on the card (the circuit cache);
     prove once from the built circuit and twice from the loaded one (the
@@ -641,9 +656,11 @@ def phase_config(tag: str, device, build, want: dict):
     must equal the JAX fixture entry `want` (and the builder's graph
     digest, taken before the build, where `want` has one); the tape's wire
     matrix must equal the dynamic scheduler's and the fixture's digest;
-    then the verify step.  -> ({path: kernel launches}: the build and
-    first prove, and the load, each counted from 0 just before it and read
-    just after; the circuit's common data)."""
+    `check(proof, inputs)`, where given, holds each proof to what the
+    circuit computes; then the verify step.  -> ({path: kernel launches}:
+    the build and first prove, and the load, each counted from 0 just
+    before it and read just after; the circuit's common data; the three
+    proves' span trees)."""
     import numpy as np
     import torch
     from plonky2_tpu_torch import utils
@@ -678,8 +695,10 @@ def phase_config(tag: str, device, build, want: dict):
     proof = data.prove(inputs)
     raw = serialize_proof(proof)
     prove_s = [time.perf_counter() - t0]
-    spans = [utils.last_tree().lines()]
+    trees = [utils.last_tree()]
     launches = {tag: read_launches()}
+    if check is not None:
+        check(proof, inputs)
 
     cs_cap = [[int(x) for x in d] for d in data.verifier.cs_cap]
     if num_gates != want["num_gates"] or data.common.degree_bits != want["degree_bits"]:
@@ -722,9 +741,12 @@ def phase_config(tag: str, device, build, want: dict):
     utils.profiling_enable()
     for kind in ("loaded", "loaded, warm"):
         t0 = time.perf_counter()
-        again = serialize_proof(loaded.prove(inputs))
+        again_proof = loaded.prove(inputs)
+        again = serialize_proof(again_proof)
         prove_s.append(time.perf_counter() - t0)
-        spans.append(utils.last_tree().lines())
+        trees.append(utils.last_tree())
+        if check is not None:
+            check(again_proof, inputs)
         if hashlib.sha256(again).hexdigest() != digest:
             raise AssertionError(f"{tag} prove from the {kind} circuit gave other bytes")
     utils.profiling_disable()
@@ -759,13 +781,13 @@ def phase_config(tag: str, device, build, want: dict):
         f"{tape_s:.3f} s, through the scheduler {scheduler_s:.3f} s; prove "
         f"({', '.join(kinds)}) " + ", ".join(f"{t:.3f} s" for t in prove_s)
         + f"; peak device memory {peak / 2**20:.1f} MiB ({CARD})")
-    for i, lines in enumerate(spans):
+    for i, tree in enumerate(trees):
         log(f"[{tag}] phase spans, prove {i + 1} ({kinds[i]} circuit; "
             f"synchronized; {CARD}):")
-        for line in lines:
+        for line in tree.lines():
             log("  " + line)
     verify_step(tag, data, proof, want)
-    return launches, data.common
+    return launches, data.common, trees
 
 
 def phase_config5_inner(device):
@@ -957,6 +979,32 @@ def phase_keccak4(device):
     return launches, data.common
 
 
+def check_lookup8(proof, inputs) -> None:
+    """lookup8's public inputs are S[x_i] for its first four inputs, with S
+    drawn on the host from the circuit's seed."""
+    from plonky2_tpu_torch.bench.circuits import lookup8_sbox
+    sbox = lookup8_sbox()
+    want = [sbox[v] for v in list(inputs.values())[:4]]
+    if list(proof.public_inputs) != want:
+        raise AssertionError(f"lookup8 public inputs {proof.public_inputs} are not the "
+                             f"S-box outputs {want}")
+    log(f"[lookup8] public inputs {want} are S[x_i] of the first four inputs")
+
+
+def log_z_spans(trees) -> None:
+    """lookup8's Z span (permutation Z polys + logUp helper polys + their
+    commit) beside config 2's, which has the same n and no lookups."""
+    for tag in ("config2", "lookup8"):
+        z = [span_seconds(t, "permutation Z polys") for t in trees[tag]]
+        lk = [span_seconds(t, "lookup helper polys") for t in trees[tag]]
+        q = [span_seconds(t, "quotient evaluation") for t in trees[tag]]
+        log(f"[{tag}] Z span (built, loaded, warm): "
+            + ", ".join(f"{v * 1e3:.2f} ms" for v in z)
+            + "; its logUp sub-span " + ", ".join(f"{v * 1e3:.2f} ms" for v in lk)
+            + "; quotient span " + ", ".join(f"{v * 1e3:.2f} ms" for v in q)
+            + f" ({CARD})")
+
+
 def phase_commits(device, tag, common):
     """Hold the LDE kernel that the commit path's dispatcher
     (`ntt.lde_from_values_rev_auto`) picks for a circuit, K2-rev up to 2^13
@@ -968,6 +1016,7 @@ def phase_commits(device, tag, common):
     import numpy as np
     import torch
     from plonky2_tpu_torch import ntt
+    from plonky2_tpu_torch.gates.lookup import lookup_info
     from plonky2_tpu_torch.ntt import cuda_lde, cuda_lde_tiled
     n = 1 << common.degree_bits
     rate_bits = common.config.fri.rate_bits
@@ -978,10 +1027,16 @@ def phase_commits(device, tag, common):
     wires_rows = common.config.num_wires
     cs_rows = (len(common.selector_info.groups) + common.num_constants_polys
                + common.config.num_routed_wires)
-    zs_rows = common.config.num_challenges * (1 + common.num_partial_products)
+    # Z and the partial products, then a lookup circuit's logUp block of
+    # k helper polys and S per challenge
+    nc = common.config.num_challenges
+    zs_rows = nc * (1 + common.num_partial_products)
+    lki = lookup_info(common)
+    if lki["has"]:
+        zs_rows += nc * (lki["k"] + 1)
     log(f"[{key}] {tag}'s wires commit [{wires_rows}, {n}], constants/sigmas commit "
-        f"[{cs_rows}, {n}] and Z/partial-products commit [{zs_rows}, {n}], from its common "
-        f"data")
+        f"[{cs_rows}, {n}] and Z/partial-products{' + logUp' if lki['has'] else ''} commit "
+        f"[{zs_rows}, {n}], from its common data")
     out = _lde_check(key, device, np.random.RandomState(4), kernel, ntt.lde_from_values_rev,
                      ((wires_rows, n), (cs_rows, n), (zs_rows, n)), rate_bits,
                      plain_brackets=2)
@@ -1001,25 +1056,35 @@ def main() -> int:
     k3 = phase_k3(device)
     phase_tiny(device)
 
-    from plonky2_tpu_torch.bench import (build_ecdsa, build_poseidon_chain,
+    from plonky2_tpu_torch.bench import (build_ecdsa, build_lookup_bytes,
+                                         build_mixed_small, build_poseidon_chain,
                                          build_smt_process, build_u32_mix)
-    paths, common = {}, {}
+    paths, common, trees = {}, {}, {}
     for path, build in (("config1", lambda: build_poseidon_chain(12)),
                         ("config2", lambda: build_u32_mix(13)),
                         ("config3", lambda: build_smt_process(14)),
                         ("config4", lambda: build_ecdsa(1))):
-        launches, common[path] = phase_config(path, device, build, fixture(path))
+        launches, common[path], trees[path] = phase_config(path, device, build,
+                                                           fixture(path))
         paths.update(launches)
     from plonky2_tpu_torch.ir import CircuitConfig
-    launches, common["config1-p2"] = phase_config(
+    launches, common["config1-p2"], _ = phase_config(
         "config1-p2", device,
         lambda: build_poseidon_chain(12, CircuitConfig.poseidon2_config()),
         fixture("config1_p2"))
     paths.update(launches)
     launches, common["keccak4"] = phase_keccak4(device)
     paths.update(launches)
+    launches, common["mixed_small"], _ = phase_config(
+        "mixed_small", device, build_mixed_small, fixture("mixed_small"))
+    paths.update(launches)
+    launches, common["lookup8"], trees["lookup8"] = phase_config(
+        "lookup8", device, build_lookup_bytes, fixture("lookup8"),
+        check=check_lookup8)
+    paths.update(launches)
+    log_z_spans(trees)
     held = {"K2-rev": k2_rev, "K3": k3}
-    for path in ("keccak4", "config4"):
+    for path in ("keccak4", "config4", "mixed_small", "lookup8"):
         key, out = phase_commits(device, path, common[path])
         held[key].update(out)
     # config 5: the inner circuit, its proofs and the outer trace are one
@@ -1028,14 +1093,15 @@ def main() -> int:
     paths.update(launches)
     key, out = phase_commits(device, "config5-inner", common["config5-inner"])
     held[key].update(out)
-    launches, common["config5"] = phase_config(
+    launches, common["config5"], _ = phase_config(
         "config5", device, lambda: (b5, inputs5, {"name": "aggregation_4"}),
         fixture("config5")["outer"])
     paths.update(launches)
     required = {"config1": ("K1", "K2-rev"), "config2": ("K1", "K2-rev"),
                 "config3": ("K1", "K3"), "config4": ("K1", "K3"),
                 "config5": ("K1", "K2-rev"), "config1-p2": ("K1", "K2-rev"),
-                "keccak4": ("K3",)}
+                "keccak4": ("K3",), "mixed_small": ("K1", "K2-rev"),
+                "lookup8": ("K1", "K2-rev")}
     required.update({f"{path}-load": kernels for path, kernels in list(required.items())})
     required["config5-inner"] = ("K1", "K2-rev")
     for path, kernels in required.items():
@@ -1063,6 +1129,14 @@ def main() -> int:
          "plonky2_tpu_torch/csrc/lde.cu", "plonky2_tpu/ntt/pallas_lde.py:316",
          k2_rev[(135, 4, 3)], lde_work(135, 4, 3, k2_table_words(2, 3)),
          ("config5-inner",)),
+        ("K2-rev", "lde_from_values_rev [135, 64] rate 3 (mixed_small wires)",
+         "plonky2_tpu_torch/csrc/lde.cu", "plonky2_tpu/ntt/pallas_lde.py:316",
+         k2_rev[(135, 64, 3)], lde_work(135, 64, 3, k2_table_words(6, 3)),
+         ("mixed_small", "mixed_small-load")),
+        ("K2-rev", "lde_from_values_rev [34, 8192] rate 3 (lookup8 Z + logUp)",
+         "plonky2_tpu_torch/csrc/lde.cu", "plonky2_tpu/ntt/pallas_lde.py:316",
+         k2_rev[(34, 1 << 13, 3)], lde_work(34, 1 << 13, 3, k2_table_words(13, 3)),
+         ("lookup8", "lookup8-load")),
         ("K2-nat", "lde_from_values [135, 4096] rate 3 (on no prove path)",
          "plonky2_tpu_torch/csrc/lde.cu", "plonky2_tpu/ntt/pallas_lde.py:303",
          k2_nat[(135, 4096, 3)], lde_work(135, 4096, 3, k2_table_words(12, 3)), None),

@@ -309,3 +309,65 @@ def build_aggregation(num_proofs: int = 4, device=DEFAULT_DEVICE):
         return agg, proofs
 
     return make, {"name": f"aggregation_{num_proofs}", "num_proofs": num_proofs}
+
+
+def build_mixed_small():
+    """The JAX package's `build_mixed_small`: u32 mul/add/xor/compare, a
+    16-entry lookup table hit once, and one secp256k1 base-field add and
+    mul, under test_config (seed 0x31BEEF, the same calls in the same
+    order).  Returns (builder, inputs, meta)."""
+    from .. import gadgets  # noqa: F401  (attaches the u32 and nonnative API)
+    from ..field import secp
+    from ..gadgets.biguint import set_biguint_target
+
+    rng = random.Random(0x31BEEF)
+    b = CircuitBuilder(CircuitConfig.test_config())
+    x = b.add_virtual_u32_target()
+    y = b.add_virtual_u32_target()
+    lo, hi = b.mul_u32(x, y)
+    s, _ = b.add_u32(lo, hi)
+    xo = b.xor_u32(s, x)
+    _lt = b.is_less_than_u32(xo, y)
+    b.register_public_input(xo.target)
+    tbl = b.add_lookup_table([(i, (i * 7 + 3) % 64) for i in range(16)])
+    li = b.lookup(b.constant(5), tbl)
+    b.register_public_input(li)
+    a_nn = b.add_virtual_nonnative_target(secp.P)
+    c_nn = b.mul_nonnative(b.add_nonnative(a_nn, a_nn), a_nn)
+    b.register_public_input(c_nn.value.limbs[0].target)
+
+    inputs: dict = {x.target: rng.randrange(1 << 32),
+                    y.target: rng.randrange(1 << 32)}
+    set_biguint_target(inputs, a_nn.value, rng.randrange(secp.P))
+    return b, inputs, {"name": "mixed_small"}
+
+
+LOOKUP8_SEED = 0x100C8
+
+
+def lookup8_sbox() -> list:
+    """`lookup8`'s S-box: a permutation of 0..255 from LOOKUP8_SEED (the
+    first draws of the generator that `build_lookup_bytes` seeds)."""
+    sbox = list(range(256))
+    random.Random(LOOKUP8_SEED).shuffle(sbox)
+    return sbox
+
+
+def build_lookup_bytes(degree_bits: int = 13, config: CircuitConfig | None = None):
+    """`lookup8`: one 256-entry table (i, S[i]), S a permutation of
+    0..255, and 6 * (2^degree_bits - 256) lookups of virtual targets that
+    hold bytes (47,616 at 2^13: 7,936 Lookup rows and 43 LookupTable
+    rows), the first four outputs public, under standard_recursion_config
+    unless `config` says otherwise.  S and the bytes come from
+    LOOKUP8_SEED.  Returns (builder, inputs, meta)."""
+    rng = random.Random(LOOKUP8_SEED)
+    sbox = list(range(256))
+    rng.shuffle(sbox)
+    b = CircuitBuilder(config or CircuitConfig.standard_recursion_config())
+    tid = b.add_lookup_table(list(enumerate(sbox)))
+    xs = [b.add_virtual_target() for _ in range(6 * ((1 << degree_bits) - 256))]
+    ys = [b.lookup(x, tid) for x in xs]
+    b.register_public_inputs(ys[:4])
+    inputs = {x: rng.randrange(256) for x in xs}
+    return b, inputs, {"name": "lookup8", "degree_bits": degree_bits,
+                       "num_lookups": len(xs)}

@@ -14,3 +14,4 @@ from .exponentiation import ExponentiationGate  # noqa: F401
 from .extension import (ArithmeticExtensionGate, MulExtensionGate,  # noqa: F401
                         ReducingExtensionGate, ReducingGate)
 from .coset_interpolation import CosetInterpolationGate  # noqa: F401
+from .lookup import LookupGate, LookupTableGate  # noqa: F401

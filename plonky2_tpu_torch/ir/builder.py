@@ -7,12 +7,12 @@ one union-find.  `build(device=...)` lowers everything to tensors
 oracle) on that device, the card unless the caller asks for the CPU, plus
 host tables for witness routing.
 
-The port carries every gate of the JAX package but the lookup gates and
-Poseidon2: arithmetic, constant, public-input, noop, Poseidon, base-sum,
-comparison, random-access, u32, exponentiation, the GF(p^2) gates and
-coset interpolation (the u32, biguint, nonnative, curve and ECDSA builder
-methods come from `gadgets/`).  The lookup methods raise
-NotImplementedError naming the gate.
+The port carries every gate of the JAX package: arithmetic, constant,
+public-input, noop, Poseidon, Poseidon2, base-sum, comparison,
+random-access, u32, exponentiation, the GF(p^2) gates, coset
+interpolation and the lookup gates (the u32, biguint, nonnative, curve,
+ECDSA and Keccak builder methods come from `gadgets/`; `add_lookup_table`
+and `lookup` from `gates/lookup.py`, whose rows `build()` places first).
 """
 
 from __future__ import annotations
@@ -24,15 +24,12 @@ from ..gates import (ArithmeticExtensionGate, ArithmeticGate, BaseSumGate,
                      ComparisonGate, ConstantGate, CosetInterpolationGate,
                      ExponentiationGate, MulExtensionGate, PoseidonGate,
                      RandomAccessGate, ReducingExtensionGate, ReducingGate)
+from ..gates import lookup as lookup_gates
 from ..hashes import poseidon
-from ..utils.device import DEFAULT_DEVICE
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 from ..witness import NamedGenerator
 
 Wire = namedtuple("Wire", ["row", "column"])
-
-
-def _not_ported(gate: str):
-    raise NotImplementedError(f"{gate} is not ported to plonky2_tpu_torch yet")
 
 
 class CircuitBuilder:
@@ -281,13 +278,13 @@ class CircuitBuilder:
         """base ^ exponent for a target exponent of known bit width."""
         return self.exp_from_bits(base, self.split_le(exponent, num_bits))
 
-    # ---------------- lookups (not ported yet) ----------------
+    # ---------------- lookups (gates/lookup.py) ----------------
 
     def add_lookup_table(self, pairs: list) -> int:
-        _not_ported("LookupTableGate")
+        return lookup_gates.add_lookup_table(self, pairs)
 
     def lookup(self, x, table_id: int):
-        _not_ported("LookupGate")
+        return lookup_gates.lookup(self, x, table_id)
 
     # ---------------- extension-field ops (GF(p^2), field/ext.py) -------
     # An extension target is a (c0, c1) tuple of base targets (plonky2's
@@ -475,6 +472,8 @@ class CircuitBuilder:
         """Compile the circuit; its tensors live on `device`: the card unless
         the caller asks for the CPU (no card: raises before any work)."""
         from ..prove.compile import compile_circuit
+        resolve_device(device)          # no card: raise before any work
+        lookup_gates.finalize_lookup_tables(self)   # lookup rows + hints
         data = compile_circuit(self, device)
         self._built = True
         return data

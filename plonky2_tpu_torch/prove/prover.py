@@ -7,6 +7,7 @@ Counterpart of `plonky2_tpu/prove/prover.py` (`_make_kernels` and
 2. wire LDE + Merkle cap      device: kernel K2 (n <= 2^13) or K3, then K1
                               under the tree
 3. permutation Z polys        device: plain torch, K2/K3 + K1 for the commit
+   (+ logUp helper polys)     (lookup circuits: one batched inverse, one scan)
 4. quotient on the 8n coset   device: plain torch, K1 for the commit
 5. openings at zeta           device: plain torch
 6. FRI                        device: plain torch folds, K1 trees and grind
@@ -41,18 +42,30 @@ from ..witness.tape import generate_witness_tape
 from .proof import OpeningSet, Proof
 
 
-def _prefix_product(r):
-    """Exclusive modular prefix product along dim -1: a log-step
-    (Hillis-Steele) scan with gl.mul, since torch has no modular cumprod."""
+def _exclusive_scan(r, op, identity: int):
+    """Exclusive modular scan along dim -1 with `op` (gl.mul or gl.add),
+    starting from `identity`: a log-step (Hillis-Steele) scan, since torch
+    has no modular cumprod or cumsum."""
     n = r.shape[-1]
     incl = r
     k = 1
     while k < n:
-        incl = torch.cat([incl[..., :k], gl.mul(incl[..., k:], incl[..., :-k])],
+        incl = torch.cat([incl[..., :k], op(incl[..., k:], incl[..., :-k])],
                          dim=-1)
         k *= 2
-    one = torch.ones(r.shape[:-1] + (1,), dtype=gl.DTYPE, device=r.device)
-    return torch.cat([one, incl[..., :-1]], dim=-1)
+    first = gl.full(r.shape[:-1] + (1,), identity, r.device)
+    return torch.cat([first, incl[..., :-1]], dim=-1)
+
+
+def _prefix_product(r):
+    """Exclusive modular prefix product along dim -1 (Z's grand product)."""
+    return _exclusive_scan(r, gl.mul, 1)
+
+
+def _prefix_sum(r):
+    """Exclusive modular prefix sum along dim -1 (logUp's running sum S:
+    S[0] = 0, S[i] = sum_{j<i} r[j])."""
+    return _exclusive_scan(r, gl.add, 0)
 
 
 def _scalar(c: int, device) -> torch.Tensor:
@@ -90,9 +103,15 @@ class _Kernels:
         self.nr = cfg.num_routed_wires
         self.qf = cfg.max_quotient_degree_factor
         self.K = common.num_partial_products + 1
-        if lookup_info(common)["has"]:
-            raise NotImplementedError("lookup arguments are not ported yet")
+        self.lki = lki = lookup_info(common)
+        # the zs oracle: Z and partial products, then per challenge the
+        # logUp block [A_0 .. A_{k-1}, S] (gates/lookup.py)
+        self.n_zb = self.nc + self.nc * (self.K - 1)
+        self.pcc = lki.get("polys_per_challenge", 0)
         self.r1_idx = list(range(self.nc))       # polys opened at zeta*g
+        if lki["has"]:
+            self.r1_idx += [self.n_zb + c * self.pcc + lki["k"]
+                            for c in range(self.nc)]
         # Chunk the 8n domain so live tensors stay ~flat (2^18 points).
         self.M = min(self.N, 1 << 18)
         # zs(g*x) in bit-reversed order: natural order is a roll by 2^rate;
@@ -140,9 +159,51 @@ class _Kernels:
                 pps.append(acc)
         return torch.stack(zs + pps, dim=0)
 
+    def lookup_phase(self, routed, lk_masks, tb_masks, lams, lgams):
+        """logUp helper polys over H: per challenge, per slot
+        A_s = mu_s / (lgam - (x + lam*y)) with mu_s = tb_mask*m - lk_mask
+        (one batched inverse for every challenge and slot), then the
+        exclusive running sum S of sum_s A_s -> [nc * (k + 1), n], per
+        challenge [A_0 .. A_{k-1}, S].  routed [nr, n]; the masks [k, n]
+        are 0/1 (`_lookup_masks`)."""
+        k, nc = self.lki["k"], self.nc
+        dev = routed.device
+        x, y, m = routed[0:3 * k:3], routed[1:3 * k:3], routed[2:3 * k:3]
+        mu = gl.sub(gl.mul(tb_masks, m), lk_masks)                # [k, n]
+        lam = gl.to_tensor(lams, dev)[:, None, None]
+        lgam = gl.to_tensor(lgams, dev)[:, None, None]
+        denom = gl.sub(lgam, gl.add(x, gl.mul(lam, y)))           # [nc, k, n]
+        As = gl.mul(mu, gl.inv(denom))
+        S = _prefix_sum(gl.sum_mod(As, dim=1))                    # [nc, n]
+        return torch.cat([As, S[:, None]], dim=1).reshape(nc * (k + 1), -1)
+
+    def lookup_terms(self, c, wires_c, zs_c, zs_next_c, l1_c, filts, lam, lgam):
+        """Challenge c's logUp vanishing terms, in the verifier's order:
+        L1*S; per slot A*(lgam - combo) - mu with the normalized filters
+        `filts` {gi: filt_gi * kappa^-1}; then S_next - S - sum(A)."""
+        lki, k = self.lki, self.lki["k"]
+        base = self.n_zb + c * self.pcc
+        S, S_next = zs_c[base + k], zs_next_c[base + k]
+        terms = [gl.mul(l1_c, S)]
+        sumA = None
+        for s in range(k):
+            A = zs_c[base + s]
+            combo = gl.add(wires_c[3 * s], gl.mul(lam, wires_c[3 * s + 1]))
+            mu = torch.zeros_like(A)
+            for gi, ns, _ in lki["tb"]:
+                if s < ns:
+                    mu = gl.add(mu, gl.mul(filts[gi], wires_c[3 * s + 2]))
+            for gi, ns, _ in lki["lk"]:
+                if s < ns:
+                    mu = gl.sub(mu, filts[gi])
+            terms.append(gl.sub(gl.mul(A, gl.sub(lgam, combo)), mu))
+            sumA = A if sumA is None else gl.add(sumA, A)
+        terms.append(gl.sub(gl.sub(S_next, S), sumA))
+        return terms
+
     def quotient_chunk(self, wires_c, sel_c, const_c, sigma_c, zs_c, zs_next_c,
                        x_c, zh_inv_c, l1_c, k_arr, betas, gammas, alphas,
-                       pi_hash):
+                       lams, lgams, pi_hash):
         """One domain chunk -> [nc, m] quotient values.
 
         Each challenge's accumulator folds, by powers of its alpha, the
@@ -152,6 +213,25 @@ class _Kernels:
         common, nc, nr, K = self.common, self.nc, self.nr, self.K
         dev = x_c.device
         one = torch.ones_like(x_c)
+        sel_info = common.selector_info
+        many = len(sel_info.groups) > 1
+
+        def filt_of(gi):
+            s = sel_c[sel_info.gate_group[gi]]
+            filt = one
+            for other in sel_info.groups[sel_info.gate_group[gi]]:
+                if other != gi:
+                    filt = gl.mul(filt, gl.sub(gl.full_like(s, other), s))
+            if many:
+                filt = gl.mul(filt, gl.sub(gl.full_like(s, sel_info.unused), s))
+            return filt
+
+        lki = self.lki
+        if lki["has"]:
+            # normalized filters: filt_gi * kappa^-1 equals the 0/1 masks
+            # of lookup_phase on H (gates/lookup.py lookup_info)
+            filts = {gi: gl.mul(filt_of(gi), _scalar(kinv, dev))
+                     for gi, _, kinv in lki["lk"] + lki["tb"]}
         vterms = []
         for c in range(nc):
             beta, gamma = _scalar(betas[c], dev), _scalar(gammas[c], dev)
@@ -166,6 +246,10 @@ class _Kernels:
             for m in range(K):
                 vterms.append(gl.sub(gl.mul(accs[m + 1], pdn[m]),
                                      gl.mul(accs[m], pn[m])))
+            if lki["has"]:
+                vterms += self.lookup_terms(
+                    c, wires_c, zs_c, zs_next_c, l1_c, filts,
+                    _scalar(lams[c], dev), _scalar(lgams[c], dev))
         vterms = torch.stack(vterms)
         T0 = vterms.shape[0]
         maxc = max((g.num_constraints for g in common.gates), default=0)
@@ -173,8 +257,6 @@ class _Kernels:
         chal_accs = [_weighted_sum(vterms, apows[c][:T0])
                      for c in range(nc)]
 
-        sel_info = common.selector_info
-        many = len(sel_info.groups) > 1
         shape = x_c.shape
         alg = BatchAlg(shape, dev)
         pi_arrs = [gl.full(shape, pi_hash[i], dev) for i in range(4)]
@@ -189,13 +271,7 @@ class _Kernels:
                 if not cs:
                     continue
                 cs = torch.stack(cs)
-            s = sel_c[sel_info.gate_group[gi]]
-            filt = one
-            for other in sel_info.groups[sel_info.gate_group[gi]]:
-                if other != gi:
-                    filt = gl.mul(filt, gl.sub(gl.full_like(s, other), s))
-            if many:
-                filt = gl.mul(filt, gl.sub(gl.full_like(s, sel_info.unused), s))
+            filt = filt_of(gi)
             for c in range(nc):
                 gacc = _weighted_sum(cs, apows[c][T0:T0 + cs.shape[0]])
                 chal_accs[c] = gl.add(chal_accs[c], gl.mul(filt, gacc))
@@ -203,7 +279,7 @@ class _Kernels:
 
     def quotient_phase(self, wires_lde, sel_lde, const_lde, sigma_lde, zs_pp_lde,
                        x_lde, zh_inv, l1, k_arr, betas, gammas, alphas,
-                       pi_hash, sinv_pows):
+                       lams, lgams, pi_hash, sinv_pows):
         """-> (q_polys [nc << rate, n] natural coeffs, q_lde bit-reversed)."""
         zs_next = zs_pp_lde.index_select(-1, self.nxt)
         outs = []
@@ -213,7 +289,7 @@ class _Kernels:
             outs.append(self.quotient_chunk(
                 cut(wires_lde), cut(sel_lde), cut(const_lde), cut(sigma_lde),
                 cut(zs_pp_lde), cut(zs_next), cut(x_lde), cut(zh_inv), cut(l1),
-                k_arr, betas, gammas, alphas, pi_hash))
+                k_arr, betas, gammas, alphas, lams, lgams, pi_hash))
         tq = torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0]
         rate = self.common.config.fri.rate_bits
         q_coeffs = gl.mul(intt_from_rev(tq), sinv_pows)
@@ -259,6 +335,27 @@ class _Kernels:
                 cut(cs_lde), cut(wires_lde), cut(zs_pp_lde), cut(q_lde),
                 *scalars, cut(x_lde)))
         return torch.cat(outs, dim=0) if len(outs) > 1 else outs[0]
+
+
+def _lookup_masks(pd, lki):
+    """Per-slot [k, n] 0/1 int64 row masks on pd's device: lk[s][r] = 1 on
+    the rows of a lookup gate with more than s slots, tb likewise for the
+    table gates.  They equal the quotient's normalized filters on H.
+    Derived from pd.row_gate, so a loaded circuit derives them too; cached
+    on pd."""
+    cached = getattr(pd, "_lookup_masks", None)
+    if cached is not None:
+        return cached
+    n = len(pd.row_gate)
+    row_gate = np.asarray(pd.row_gate, dtype=np.int64)
+    masks = []
+    for gates in (lki["lk"], lki["tb"]):
+        mk = np.zeros((lki["k"], n), dtype=np.int64)
+        for gi, ns, _kinv in gates:
+            mk[:ns, row_gate == gi] = 1
+        masks.append(torch.from_numpy(mk).to(pd.device))
+    pd._lookup_masks = tuple(masks)
+    return pd._lookup_masks
 
 
 def get_kernels(pd) -> _Kernels:
@@ -348,15 +445,25 @@ def _prove_impl(pd, inputs: dict) -> Proof:
     ch.observe_cap(wires_tree.cap_host())
     betas = ch.get_n_challenges(nc)
     gammas = ch.get_n_challenges(nc)
+    lki = kernels.lki
+    lams = lgams = None                      # logUp's challenges, if any
+    if lki["has"]:
+        lams = ch.get_n_challenges(nc)
+        lgams = ch.get_n_challenges(nc)
 
-    # ---- 3. Z polys + partial products over H ----
+    # ---- 3. Z polys + partial products (+ logUp helper polys) over H ----
     g_pows = gl.powers(gl.primitive_root_of_unity(common.degree_bits), n, dev)
     k_arr = gl.to_tensor(common.k_is, dev)
-    _zn = nc + nc * common.num_partial_products
+    _zn = kernels.n_zb + nc * kernels.pcc
     with timed_span("permutation Z polys + commit",
                     nbytes=8 * (3 * nr * n + _zn * (2 * n + 2 * N))):
         zs_pp_vals = kernels.z_phase(wires[:nr], pd.sigma_polys, k_arr, g_pows,
                                      betas, gammas)
+        if lki["has"]:
+            with timed_span("lookup helper polys (logUp)"):
+                lk_masks, tb_masks = _lookup_masks(pd, lki)
+                zs_pp_vals = torch.cat([zs_pp_vals, kernels.lookup_phase(
+                    wires[:nr], lk_masks, tb_masks, lams, lgams)], dim=0)
         zs_pp_coeffs, zs_pp_lde = lde_from_values_rev_auto(zs_pp_vals, rate)
         zs_tree = MerkleTree.build_cols(zs_pp_lde, fri_cfg.cap_height, th)
         zs_tree.cap_host()
@@ -390,7 +497,7 @@ def _prove_impl(pd, inputs: dict) -> Proof:
                     nbytes=8 * (_qr + (nc << rate) * (3 * N))):
         q_polys, q_lde = kernels.quotient_phase(
             wires_lde, sel_lde, const_lde, sigma_lde, zs_pp_lde, x_lde, zh_inv,
-            l1, k_arr, betas, gammas, alphas, pi_hash, sinv_pows)
+            l1, k_arr, betas, gammas, alphas, lams, lgams, pi_hash, sinv_pows)
         q_tree = MerkleTree.build_cols(q_lde, fri_cfg.cap_height, th)
         q_tree.cap_host()
     ch.observe_cap(q_tree.cap_host())

@@ -41,9 +41,10 @@ def verify(vd, proof: Proof) -> None:
     ch.observe_cap(proof.wires_cap)
     betas = ch.get_n_challenges(nc)
     gammas = ch.get_n_challenges(nc)
-    if lookup_info(common)["has"]:
-        raise NotImplementedError(
-            "lookup arguments are not ported to plonky2_tpu_torch yet")
+    lki = lookup_info(common)
+    if lki["has"]:
+        lams = ch.get_n_challenges(nc)
+        lgams = ch.get_n_challenges(nc)
     ch.observe_cap(proof.zs_pp_cap)
     alphas = ch.get_n_challenges(nc)
     ch.observe_cap(proof.quotient_cap)
@@ -65,10 +66,12 @@ def verify(vd, proof: Proof) -> None:
     pps = zspp[nc:nc + nc * (K - 1)]
     zs_next = [tuple(e) for e in o.zs_next]
     quotient = [tuple(e) for e in o.quotient]
-    n_zspp = nc + nc * (K - 1)
+    n_zb = nc + nc * (K - 1)                  # the logUp block's first row
+    pcc = lki.get("polys_per_challenge", 0)
+    n_zspp = n_zb + nc * pcc
     require(len(sigmas) == nr and len(zspp) == n_zspp, "opening counts")
-    require(len(wires) == cfg.num_wires and len(zs_next) == nc,
-            "opening counts")
+    require(len(wires) == cfg.num_wires
+            and len(zs_next) == nc * (2 if lki["has"] else 1), "opening counts")
     require(len(quotient) == nc << fri_cfg.rate_bits, "quotient opening count")
 
     # Z_H(zeta), L_1(zeta)
@@ -110,6 +113,32 @@ def verify(vd, proof: Proof) -> None:
                 pd_ = ext.mul_s(pd_, den_i)
             terms.append(ext.sub_s(ext.mul_s(accs[m + 1], pd_),
                                    ext.mul_s(accs[m], pn)))
+        if lki["has"]:
+            # logUp terms at zeta, in the prover's order (prover.py
+            # lookup_terms): L1*S, per slot A*(lgam - combo) - mu, then
+            # S_next - S - sum(A)
+            kk = lki["k"]
+            lam, lgam = lams[c], lgams[c]
+            S = zspp[n_zb + c * pcc + kk]
+            S_next = zs_next[nc + c]
+            terms.append(ext.mul_s(l1_zeta, S))
+            sum_a = ext.ZERO
+            for s in range(kk):
+                A = zspp[n_zb + c * pcc + s]
+                combo = ext.add_s(wires[3 * s],
+                                  ext.scalar_mul_s(wires[3 * s + 1], lam))
+                mu = ext.ZERO
+                for gi, ns, kinv in lki["tb"]:
+                    if s < ns:
+                        nf = ext.scalar_mul_s(filt_of(gi), kinv)
+                        mu = ext.add_s(mu, ext.mul_s(nf, wires[3 * s + 2]))
+                for gi, ns, kinv in lki["lk"]:
+                    if s < ns:
+                        mu = ext.sub_s(mu, ext.scalar_mul_s(filt_of(gi), kinv))
+                terms.append(ext.sub_s(
+                    ext.mul_s(A, ext.sub_s(ext.from_base_s(lgam), combo)), mu))
+                sum_a = ext.add_s(sum_a, A)
+            terms.append(ext.sub_s(ext.sub_s(S_next, S), sum_a))
 
     # gate terms
     alg = ExtAlg()
@@ -156,6 +185,8 @@ def verify(vd, proof: Proof) -> None:
     nw = cfg.num_wires
     n_q = nc << fri_cfg.rate_bits
     r1_rows = list(range(nc))                 # rows opened at zeta*g
+    if lki["has"]:
+        r1_rows += [n_zb + c * pcc + lki["k"] for c in range(nc)]
 
     def combine_fn(idx, leaves):
         # Merkle leaves may carry zero padding past the logical column

@@ -116,10 +116,16 @@ def serialize_prover_data(pd: ProverData) -> bytes:
         _write_targets(buf, sorted(members, key=_tkey))
     # gadget hints; gate generators and the public-input hash generator
     # rebuild on load from the instance list
+    # (hints often share one params dict, e.g. every use of a lookup
+    # table: each dict is dumped once)
+    dumped: dict = {}
     buf.write_u32(len(pd.custom_generators))
     for g in pd.custom_generators:
         buf.write_str(g.name)
-        buf.write_str(json.dumps(g.params))
+        raw = dumped.get(id(g.params))
+        if raw is None:
+            raw = dumped[id(g.params)] = json.dumps(g.params)
+        buf.write_str(raw)
         _write_targets(buf, g.deps)
         _write_targets(buf, g.outs)
     return buf.bytes()
@@ -152,10 +158,15 @@ def deserialize_prover_data(data: bytes, device=DEFAULT_DEVICE) -> CircuitData:
         members = _read_targets(buf, buf.read_u32())
         rep_map.update(dict.fromkeys(members, rep))
         classes[rep] = set(members)
-    custom = []
+    # equal params strings load as one shared dict, as the builder made
+    # them (a lookup table's 256 pairs are written once for each use)
+    custom, parsed = [], {}
     for _ in range(buf.read_u32()):
         name = buf.read_str()
-        params = json.loads(buf.read_str())
+        raw = buf.read_str()
+        params = parsed.get(raw)
+        if params is None:
+            params = parsed[raw] = json.loads(raw)
         deps = _read_targets(buf, buf.read_u32())
         outs = _read_targets(buf, buf.read_u32())
         custom.append(NamedGenerator(name, params, deps, outs))

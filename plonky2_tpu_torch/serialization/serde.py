@@ -3,9 +3,8 @@
 Host copy of `plonky2_tpu/serialization/serde.py`: the byte formats of the
 JAX package, so a proof or a verifier key written by either package reads
 in the other.  Every gate serializes as its `key()` string and is rebuilt
-through `gate_from_key`, whose registry holds exactly the ported gates; a
-gate that the JAX package registers but the port does not carry yet raises
-NotImplementedError naming it.  The config's two hashers are written by
+through `gate_from_key`, whose registry holds every gate of the JAX
+package's registry.  The config's two hashers are written by
 name: the in-circuit one ("poseidon" or "poseidon2"), then the transcript
 one ("poseidon" or "keccak").
 """
@@ -25,10 +24,6 @@ from .buffer import Buffer
 # gate registry
 # ------------------------------------------------------------------
 
-# Gates of the JAX registry that the port does not carry yet.
-NOT_PORTED = ("Lookup", "LookupTable")
-
-
 def _registry():
     from ..gates import (ArithmeticGate, BaseSumGate, ConstantGate, NoopGate,
                          Poseidon2Gate, PoseidonGate, PublicInputGate)
@@ -37,6 +32,7 @@ def _registry():
     from ..gates.exponentiation import ExponentiationGate
     from ..gates.extension import (ArithmeticExtensionGate, MulExtensionGate,
                                    ReducingExtensionGate, ReducingGate)
+    from ..gates.lookup import LookupGate, LookupTableGate
     from ..gates.random_access import RandomAccessGate
     from ..gates.u32_arithmetic import (U32AddManyGate, U32ArithmeticGate,
                                         U32RangeCheckGate)
@@ -45,6 +41,8 @@ def _registry():
                                         UninterleaveToU32Gate)
     return {
         "Arithmetic": lambda a: ArithmeticGate(num_ops=a["num_ops"]),
+        "Lookup": lambda a: LookupGate(a["num_slots"]),
+        "LookupTable": lambda a: LookupTableGate(a["num_slots"]),
         "BaseSum": lambda a: BaseSumGate(a["base"], a["limbs"]),
         "Constant": lambda a: ConstantGate(num_consts=a["num_consts"]),
         "PublicInput": lambda a: PublicInputGate(),
@@ -89,9 +87,6 @@ def gate_from_key(key: str):
         for part in argstr.split(","):
             k, v = part.split("=")
             args[k.strip()] = int(v)
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"{name} gate is not ported to plonky2_tpu_torch yet")
     reg = _registry()
     if name not in reg:
         raise ValueError(f"unknown gate: {name}")

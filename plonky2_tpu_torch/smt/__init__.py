@@ -5,3 +5,5 @@ from .tree import (NodeDataMemory, PoseidonNodeHash, RootDataMemory,  # noqa: F4
 from .proof import (ProcessMerkleProofRole, SparseMerkleInclusionProof,  # noqa: F401
                     SparseMerkleProcessProof, smt_lev_ins,
                     verify_smt_inclusion_proof, verify_smt_process_proof)
+from .layered import (LayeredLayeredSparseMerkleTree,  # noqa: F401
+                      LayeredSparseMerkleTree, verify_layered_smt_connection)

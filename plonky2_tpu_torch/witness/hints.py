@@ -1,12 +1,12 @@
 """Named witness hints: gadget hint generators as (name, params, deps, outs).
 
-Host copy of the part of `plonky2_tpu/witness/hints.py` that the ported
-builder calls: the registry, `NamedGenerator`, the field hints
-`inv_or_zero` (for `is_equal`) and `ext_inv` (the recursive verifier's
-GF(p^2) inverse), and the biguint, nonnative and GLV hints of the
-secp256k1 gadgets.  A hint maps (params, dep values) to the values of its
-`outs`, in order; biguints travel as little-endian u32 limbs.  The lookup
-hints arrive with their gates.
+Host copy of `plonky2_tpu/witness/hints.py`: the registry,
+`NamedGenerator`, the field hints `inv_or_zero` (for `is_equal`) and
+`ext_inv` (the recursive verifier's GF(p^2) inverse), the biguint,
+nonnative and GLV hints of the secp256k1 gadgets, and the lookup hints
+`lookup_out` and `lookup_mults`.  A hint maps (params, dep values) to the
+values of its `outs`, in order; biguints travel as little-endian u32
+limbs.  Every one is a Python escape in the witness tape.
 """
 
 from __future__ import annotations
@@ -136,3 +136,45 @@ def _glv_decompose(p, vals):
     m1, n1, m2, n2 = secp.glv_decompose(kv)
     return (big_from_int(m1, p["n1"]) + big_from_int(m2, p["n2"])
             + [int(n1), int(n2)])
+
+
+_last_table = (None, {})    # (the table last read, its {input: output})
+
+
+def _table_map(table) -> dict:
+    """{input: output} of a lookup table's [[input, output], ...] list.
+    Every use of a table shares one params dict and the tape runs a
+    table's uses in a row, so the map of the last table read is kept."""
+    global _last_table
+    last = _last_table
+    if last[0] is not table:
+        last = _last_table = (table, {int(a): int(b) for a, b in table})
+    return last[1]
+
+
+@hint_fn("lookup_out")
+def _lookup_out(p, vals):
+    table = _table_map(p["table"])
+    x = vals[0]
+    if x not in table:
+        raise ValueError(f"lookup input {x} not in table")
+    return [table[x]]
+
+
+@hint_fn("lookup_mults")
+def _lookup_mults(p, vals):
+    """vals = every looked-up input; outs = one multiplicity per table
+    slot.  A value that fills several slots (the padding repeats the last
+    entry) has its full count on the first of them."""
+    from collections import Counter
+    counts = Counter(vals)
+    out = []
+    seen = set()
+    for t in p["table_in"]:
+        t = int(t)
+        if t in seen:
+            out.append(0)
+        else:
+            seen.add(t)
+            out.append(counts.get(t, 0))
+    return out

@@ -1,7 +1,7 @@
 """Write tests/torch_port_vectors.json: the JAX package's proof digests
 that the PyTorch port (`plonky2_tpu_torch`) must reproduce byte for byte.
 
-Sixteen entries, built, proved and verified with the JAX package on the
+Nineteen entries, built, proved and verified with the JAX package on the
 CPU:
 
 * `tiny`: the golden tiny circuit of tests/test_golden_vectors.py (its
@@ -46,7 +46,15 @@ CPU:
   (keccak256.rs:256-338) under `keccak_config`, 2^15 rows, proved for the
   four Ethereum trie nodes of `plonky2_tpu_torch.bench.circuits.
   ETH_LONG_VECTORS`; its `public_inputs`, `proof_len`, `proof_sha256` and
-  `wire_matrix_sha256` are lists, one item per node.
+  `wire_matrix_sha256` are lists, one item per node;
+* `small_lookup`: the lookup circuit of tests/test_lookup.py
+  (`build_lookup_circuit`, a 16-entry table) for the inputs
+  [3, 7, 7, 0, 15, 4, 4, 4] under `test_config`;
+* `mixed_small`: the JAX package's `bench.circuits.build_mixed_small()`
+  (u32, xor, a lookup and nonnative ops under `test_config`);
+* `lookup8`: the port's `bench.circuits.build_lookup_bytes(13)` built by
+  the JAX builder: 47,616 lookups into a 256-entry 8-bit S-box under
+  `standard_recursion_config`, 2^13 rows.
 
 For each: degree_bits, num_gates, the constants/sigmas cap, the public
 inputs, the proof length, the proof sha256, the sha256 of the
@@ -55,9 +63,9 @@ serialized verifier key, `prover_data_sha256` (the sha256 of
 `wire_matrix_sha256` (the sha256 of the witness's [num_wires, n] uint64
 wire matrix, little-endian, row by row, as the JAX prover's phase 1
 computes it: `generate_witness_tape`, `scatter`, then every gate's
-batched `aux_fill`).  `config4`, `small_ecc` and the two outer circuits
-also carry `graph_sha256` (`plonky2_tpu_torch.ir.digest.graph_digest`; `keccak4`
-too): a
+batched `aux_fill`).  `config4`, `small_ecc`, the two outer circuits and the three
+lookup circuits also carry `graph_sha256`
+(`plonky2_tpu_torch.ir.digest.graph_digest`; `keccak4` too): a
 digest of the builder's graph that a test can recompute from the port's
 builder without a build.  The whole
 run takes about 50 minutes on the CPU: the JAX package proves configs 1,
@@ -75,7 +83,9 @@ such as the verifier-key, prover-data and wire-matrix digests, without
 the long proves); it does not apply to the entries of `OWN_RECORD`.
 Config 5's entries took about 20 minutes, each name in its own process;
 `small_keccak`, `small_poseidon2`, `config1_p2` and `keccak4` 8.5, 2.3,
-7.0 and 8.5 minutes, each in its own process.
+7.0 and 8.5 minutes, each in its own process; `small_lookup`,
+`mixed_small` and `lookup8`, each in its own process at once, the times
+in ROADMAP.md (queue 1).
 """
 from __future__ import annotations
 
@@ -379,7 +389,42 @@ def keccak4(ir) -> dict:
     return out
 
 
-GRAPH_DIGESTED = ("config4", "small_ecc", "small_recursion", "config5")
+LOOKUP_TABLE = [(i, (i ** 3 + 5) % 97) for i in range(16)]
+
+
+def small_lookup(ir, xs=(3, 7, 7, 0, 15, 4, 4, 4)):
+    """`build_lookup_circuit(xs)` of tests/test_lookup.py: every input and
+    then every looked-up output public, under test_config."""
+    b = ir.CircuitBuilder(ir.CircuitConfig.test_config())
+    tid = b.add_lookup_table(LOOKUP_TABLE)
+    ins = [b.add_virtual_target() for _ in xs]
+    for t in ins:
+        b.register_public_input(t)
+    for t in ins:
+        b.register_public_input(b.lookup(t, tid))
+    return b, dict(zip(ins, xs))
+
+
+def lookup8(ir, degree_bits: int = 13):
+    """The JAX twin of the port's `bench.circuits.build_lookup_bytes`, by
+    the same builder calls: a 256-entry table (i, S[i]) with S a
+    permutation of 0..255, 6 * (2^degree_bits - 256) lookups of virtual
+    targets holding bytes, the first four outputs public, under
+    standard_recursion_config; S and the bytes from seed 0x100C8."""
+    import random
+    rng = random.Random(0x100C8)
+    sbox = list(range(256))
+    rng.shuffle(sbox)
+    b = ir.CircuitBuilder(ir.CircuitConfig.standard_recursion_config())
+    tid = b.add_lookup_table(list(enumerate(sbox)))
+    xs = [b.add_virtual_target() for _ in range(6 * ((1 << degree_bits) - 256))]
+    ys = [b.lookup(x, tid) for x in xs]
+    b.register_public_inputs(ys[:4])
+    return b, {x: rng.randrange(256) for x in xs}
+
+
+GRAPH_DIGESTED = ("config4", "small_ecc", "small_recursion", "config5",
+                  "small_lookup", "mixed_small", "lookup8")
 
 
 def wire_matrix(pd, inputs):
@@ -515,7 +560,8 @@ def config5(ir) -> dict:
 
 
 def _circuits(ir):
-    from plonky2_tpu.bench.circuits import (build_ecdsa, build_poseidon_chain,
+    from plonky2_tpu.bench.circuits import (build_ecdsa, build_mixed_small,
+                                            build_poseidon_chain,
                                             build_smt_process, build_u32_mix)
     return {
         "tiny": lambda: tiny(ir),
@@ -531,6 +577,9 @@ def _circuits(ir):
         "small_poseidon2": lambda: small_poseidon2(ir),
         "config1_p2": lambda: small_chain(ir, 12,
                                           ir.CircuitConfig.poseidon2_config()),
+        "small_lookup": lambda: small_lookup(ir),
+        "mixed_small": lambda: build_mixed_small()[:2],
+        "lookup8": lambda: lookup8(ir),
     }
 
 
