@@ -72,13 +72,27 @@ there, and verifies every proof with the port's host verifier:
                  loaded and warm proves, the wire matrix, the verify
                  step); then K2-rev against the plain LDE at its three
                  commit shapes (n = 64)
- 15. lookup8     `bench.build_lookup_bytes(13)`: the steps of 8, each
+ 15. mesh        the device mesh (`parallel`): `sharded_prove_step` on
+                 the `mesh_step` fixture's wires [136, 2^12] (rate 3, cap
+                 height 4) on `make_prover_mesh()` (d = 1 on one card)
+                 and on four shards of the card, its cap and sample the
+                 JAX function's on its 8-device mesh (K2-nat per poly
+                 shard, K1 per row shard); config 1 (d = 1 and 4),
+                 config 3 (d = 4) and mixed_small (d = 8) proved with
+                 `mesh=` from the circuits their phases loaded, each to
+                 the fixture's bytes, beside an unsharded warm prove
+                 (walls and synchronized spans, information only: the
+                 shards of one card run one after another), then the
+                 verify step; then K2-nat, K2-rev and K3 against their
+                 plain versions at the shard shapes ([136 / 34, 2^12],
+                 [34, 2^12] and [17, 64], [34, 2^14])
+ 16. lookup8     `bench.build_lookup_bytes(13)`: the steps of 8, each
                  proof's public inputs S[x_i] for the first four inputs
                  (S and x_i computed on the host); then K2-rev against the
                  plain LDE at its three commit shapes (the Z/logUp commit
                  [34, 2^13]); the time of its Z span (with its logUp
                  sub-span) beside config 2's, which has the same n
- 16. config 5    `bench.circuits.aggregation_steps`, the code of
+ 17. config 5    `bench.circuits.aggregation_steps`, the code of
                  `bench.build_aggregation(4)` up to the outer build: the
                  zkDSA circuit built, its four proofs (the JAX seed's keys
                  and messages) made and verified, each equal to the
@@ -87,7 +101,7 @@ there, and verifies every proof with the port's host verifier:
                  shapes (n = 4, read from its common data); then the steps
                  of 8 for the outer circuit of 2^13 rows
 
-Every proof phase (7-16) ends with a verify step: the port's verifier
+Every proof phase (7-17) ends with a verify step: the port's verifier
 accepts the card's proof and rejects it with one public input (the wires
 cap where there is none) or one opening changed, and the verifier key's
 bytes have the fixture's sha256 and read back to the same bytes.
@@ -97,7 +111,8 @@ is 0.  Kernel inputs cover all of [0, p), edge values included.  Kernel
 launch counts are set to 0 just before each main path (a configuration's
 build and first prove (keccak4: its four proves), its load from bytes, and
 config 5's inner circuit, its four proofs and the outer trace; mixed_small
-and lookup8 like configs 1-4) and read just after it.
+and lookup8 like configs 1-4; each sharded step and each prove with
+`mesh=`) and read just after it.
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its 32-bit integer multiplies
 over 64 per clock per SM x 132 SMs x the card's maximum SM clock.  Each
@@ -660,7 +675,8 @@ def phase_config(tag: str, device, build, want: dict, check=None):
     circuit computes; then the verify step.  -> ({path: kernel launches}:
     the build and first prove, and the load, each counted from 0 just
     before it and read just after; the circuit's common data; the three
-    proves' span trees)."""
+    proves' span trees; (the loaded circuit, its tape built, and the
+    inputs), which the mesh phase proves again)."""
     import numpy as np
     import torch
     from plonky2_tpu_torch import utils
@@ -787,7 +803,7 @@ def phase_config(tag: str, device, build, want: dict, check=None):
         for line in tree.lines():
             log("  " + line)
     verify_step(tag, data, proof, want)
-    return launches, data.common, trees
+    return launches, data.common, trees, (loaded, inputs)
 
 
 def phase_config5_inner(device):
@@ -1044,6 +1060,125 @@ def phase_commits(device, tag, common):
     return key, out
 
 
+# The mesh_step fixture's wires: __graft_entry__.entry()'s draw, 136 rows
+# so that every mesh size up to 8 divides them.
+MESH_STEP_SHAPE = (136, 1 << 12)
+
+
+def phase_mesh_step(device):
+    """`parallel.sharded_prove_step` on the fixture's wires [136, 2^12], rate
+    3, cap height 4, on `make_prover_mesh()` (every card: d = 1 on one) and
+    on four shards of the card, `Mesh((device,) * 4)`: its cap and the
+    sha256 of its sample must equal `mesh_step` (the JAX function on its
+    8-device CPU mesh).  -> {path: launches}: `mesh-step-d1` and
+    `mesh-step`, each counted from 0 just before it and read just after."""
+    import numpy as np
+    import torch
+    from plonky2_tpu_torch.field import gl
+    from plonky2_tpu_torch.parallel import Mesh, make_prover_mesh, sharded_prove_step
+    want = fixture("mesh_step")
+    if tuple(want["shape"]) != MESH_STEP_SHAPE:
+        raise AssertionError(f"mesh_step fixture shape {want['shape']} != {MESH_STEP_SHAPE}")
+    wires_host = np.random.RandomState(0).randint(0, 1 << 62, size=MESH_STEP_SHAPE) \
+        .astype(np.uint64)
+    wires = gl.to_tensor(wires_host, device)
+    launches = {}
+    for path, mesh in (("mesh-step-d1", make_prover_mesh()), ("mesh-step", Mesh((device,) * 4))):
+        reset_launches()
+        t0 = time.perf_counter()
+        cap, sample = sharded_prove_step(mesh, wires, want["rate_bits"], want["cap_height"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[path] = read_launches()
+        cap = [[int(x) for x in row] for row in gl.from_tensor(cap)]
+        digest = hashlib.sha256(np.ascontiguousarray(gl.from_tensor(sample), dtype="<u8")
+                                .tobytes()).hexdigest()
+        if cap != want["cap"] or digest != want["sample_sha256"]:
+            raise AssertionError(f"{path}: sharded_prove_step on {mesh.size} shards differs "
+                                 f"from the JAX fixture (sample sha256 {digest})")
+        log(f"[{path}] sharded_prove_step [136, 4096] rate 3 cap height 4 on {mesh.size} "
+            f"shard(s) of {mesh.devices[0]}: cap and sample sha256 {digest} equal the JAX "
+            f"fixture; {wall * 1e3:.2f} ms, first call (information only; {CARD})")
+        log(f"[{path}] launches: " + ", ".join(f"{k} {v}" for k, v in launches[path].items())
+            + f" ({CARD})")
+    return launches
+
+
+def phase_mesh(device, circuits):
+    """Each circuit proved again with `mesh=` from the loaded circuit (its
+    tape built) that its own phase left: config 1 on `make_prover_mesh()` (d
+    = 1) and on four shards of the card, config 3 on four, mixed_small on
+    eight (the d of tests/test_multichip.py).  Each proof's bytes must equal
+    the fixture's, the unsharded prove's; then the verify step.  Beside
+    each mesh prove, an unsharded warm prove of the same circuit; their
+    walls and synchronized spans are information only (shards on one card
+    run one after another).  circuits: {tag: (loaded circuit, inputs, the
+    fixture's key)}.  -> {path: launches}, each mesh prove counted from 0
+    just before it and read just after."""
+    from plonky2_tpu_torch import utils
+    from plonky2_tpu_torch.parallel import Mesh, make_prover_mesh
+    from plonky2_tpu_torch.serialization import serialize_proof
+    launches = {}
+    for path, tag, mesh in (("mesh-config1-d1", "config1", make_prover_mesh()),
+                            ("mesh-config1", "config1", Mesh((device,) * 4)),
+                            ("mesh-config3", "config3", Mesh((device,) * 4)),
+                            ("mesh-mixed_small", "mixed_small", Mesh((device,) * 8))):
+        data, inputs, key = circuits[tag]
+        want = fixture(key)
+        utils.profiling_enable()
+        walls, trees = [], []
+        for m in (None, mesh):
+            if m is not None:
+                reset_launches()
+            t0 = time.perf_counter()
+            proof = data.prove(inputs, mesh=m)
+            raw = serialize_proof(proof)
+            walls.append(time.perf_counter() - t0)
+            trees.append(utils.last_tree())
+            if m is not None:
+                launches[path] = read_launches()
+            digest = hashlib.sha256(raw).hexdigest()
+            if (len(raw), digest) != (want["proof_len"], want["proof_sha256"]):
+                raise AssertionError(f"{path}: the proof on {m.size if m else 'no'} shards "
+                                     f"({len(raw)} bytes, sha256 {digest}) differs from "
+                                     f"the JAX fixture")
+        utils.profiling_disable()
+        log(f"[{path}] {tag} proved on {mesh.size} shard(s) of {mesh.devices[0]}: {len(raw)} "
+            f"bytes, sha256 {digest} equals the JAX fixture and the unsharded proof")
+        log(f"[{path}] launches: " + ", ".join(f"{k} {v}" for k, v in launches[path].items())
+            + f" ({CARD})")
+        log(f"[{path}] wall (information only): unsharded warm prove {walls[0]:.3f} s, "
+            f"on {mesh.size} shard(s) {walls[1]:.3f} s ({CARD})")
+        for label, tree in (("unsharded warm prove", trees[0]),
+                            (f"prove on {mesh.size} shard(s)", trees[1])):
+            log(f"[{path}] phase spans, {label} (synchronized; {CARD}):")
+            for line in tree.lines():
+                log("  " + line)
+        verify_step(path, data, proof, want)
+    return launches
+
+
+def phase_mesh_kernels(device):
+    """The LDE kernels at the mesh paths' shard shapes, rate 3: K2-nat at
+    mesh-step's [136, 2^12] (one shard) and [34, 2^12] (four); K2-rev at
+    mesh-config1's wires shard [34, 2^12] and mesh-mixed_small's [17, 64];
+    K3 at mesh-config3's wires shard [34, 2^14].  -> (K2-nat, K2-rev, K3)
+    as `_lde_check` gives them."""
+    import numpy as np
+    import torch
+    from plonky2_tpu_torch import ntt
+    from plonky2_tpu_torch.ntt import cuda_lde, cuda_lde_tiled
+    rng = np.random.RandomState(14)
+    nat = _lde_check("K2-nat", device, rng, cuda_lde.lde_from_values_cuda,
+                     ntt.lde_from_values, ((136, 1 << 12), (34, 1 << 12)), 3)
+    rev = _lde_check("K2-rev", device, rng, cuda_lde.lde_from_values_rev_cuda,
+                     ntt.lde_from_values_rev, ((34, 1 << 12), (17, 64)), 3)
+    k3 = _lde_check("K3", device, rng, cuda_lde_tiled.lde_from_values_tiled_rev_cuda,
+                    ntt.lde_from_values_rev, ((34, 1 << 14),), 3, plain_brackets=2)
+    torch.cuda.empty_cache()
+    return nat, rev, k3
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
@@ -1059,26 +1194,36 @@ def main() -> int:
     from plonky2_tpu_torch.bench import (build_ecdsa, build_lookup_bytes,
                                          build_mixed_small, build_poseidon_chain,
                                          build_smt_process, build_u32_mix)
-    paths, common, trees = {}, {}, {}
+    paths, common, trees, circuits = {}, {}, {}, {}
     for path, build in (("config1", lambda: build_poseidon_chain(12)),
                         ("config2", lambda: build_u32_mix(13)),
                         ("config3", lambda: build_smt_process(14)),
                         ("config4", lambda: build_ecdsa(1))):
-        launches, common[path], trees[path] = phase_config(path, device, build,
-                                                           fixture(path))
+        launches, common[path], trees[path], loaded = phase_config(path, device, build,
+                                                                   fixture(path))
         paths.update(launches)
+        if path in ("config1", "config3"):
+            circuits[path] = (*loaded, path)
     from plonky2_tpu_torch.ir import CircuitConfig
-    launches, common["config1-p2"], _ = phase_config(
+    launches, common["config1-p2"], _, _ = phase_config(
         "config1-p2", device,
         lambda: build_poseidon_chain(12, CircuitConfig.poseidon2_config()),
         fixture("config1_p2"))
     paths.update(launches)
     launches, common["keccak4"] = phase_keccak4(device)
     paths.update(launches)
-    launches, common["mixed_small"], _ = phase_config(
+    launches, common["mixed_small"], _, loaded = phase_config(
         "mixed_small", device, build_mixed_small, fixture("mixed_small"))
     paths.update(launches)
-    launches, common["lookup8"], trees["lookup8"] = phase_config(
+    circuits["mixed_small"] = (*loaded, "mixed_small")
+    # the mesh: the sharded step, then configs 1 and 3 and mixed_small
+    # proved again on shards of the card
+    paths.update(phase_mesh_step(device))
+    paths.update(phase_mesh(device, circuits))
+    del circuits
+    for held_out, mesh_out in zip((k2_nat, k2_rev, k3), phase_mesh_kernels(device)):
+        held_out.update(mesh_out)
+    launches, common["lookup8"], trees["lookup8"], _ = phase_config(
         "lookup8", device, build_lookup_bytes, fixture("lookup8"),
         check=check_lookup8)
     paths.update(launches)
@@ -1093,7 +1238,7 @@ def main() -> int:
     paths.update(launches)
     key, out = phase_commits(device, "config5-inner", common["config5-inner"])
     held[key].update(out)
-    launches, common["config5"], _ = phase_config(
+    launches, common["config5"], _, _ = phase_config(
         "config5", device, lambda: (b5, inputs5, {"name": "aggregation_4"}),
         fixture("config5")["outer"])
     paths.update(launches)
@@ -1104,6 +1249,9 @@ def main() -> int:
                 "lookup8": ("K1", "K2-rev")}
     required.update({f"{path}-load": kernels for path, kernels in list(required.items())})
     required["config5-inner"] = ("K1", "K2-rev")
+    required.update({"mesh-step-d1": ("K1", "K2-nat"), "mesh-step": ("K1", "K2-nat"),
+                     "mesh-config1-d1": ("K1", "K2-rev"), "mesh-config1": ("K1", "K2-rev"),
+                     "mesh-config3": ("K1", "K3"), "mesh-mixed_small": ("K1", "K2-rev")})
     for path, kernels in required.items():
         for k in kernels:
             if paths[path][k] <= 0:
@@ -1120,7 +1268,11 @@ def main() -> int:
         ("K2-rev", "lde_from_values_rev [135, 4096] rate 3 (config 1 wires)",
          "plonky2_tpu_torch/csrc/lde.cu", "plonky2_tpu/ntt/pallas_lde.py:316",
          k2_rev[(135, 4096, 3)], lde_work(135, 4096, 3, k2_table_words(12, 3)),
-         ("config1", "config1-load", "config1-p2", "config1-p2-load")),
+         ("config1", "config1-load", "config1-p2", "config1-p2-load", "mesh-config1-d1")),
+        ("K2-rev", "lde_from_values_rev [34, 4096] rate 3 (config 1 wires, a shard of 4)",
+         "plonky2_tpu_torch/csrc/lde.cu", "plonky2_tpu/ntt/pallas_lde.py:316",
+         k2_rev[(34, 4096, 3)], lde_work(34, 4096, 3, k2_table_words(12, 3)),
+         ("mesh-config1",)),
         ("K2-rev", "lde_from_values_rev [135, 8192] rate 3 (config 2 and 5 wires)",
          "plonky2_tpu_torch/csrc/lde.cu", "plonky2_tpu/ntt/pallas_lde.py:316",
          k2_rev[(135, 1 << 13, 3)], lde_work(135, 1 << 13, 3, k2_table_words(13, 3)),
@@ -1133,17 +1285,30 @@ def main() -> int:
          "plonky2_tpu_torch/csrc/lde.cu", "plonky2_tpu/ntt/pallas_lde.py:316",
          k2_rev[(135, 64, 3)], lde_work(135, 64, 3, k2_table_words(6, 3)),
          ("mixed_small", "mixed_small-load")),
+        ("K2-rev", "lde_from_values_rev [17, 64] rate 3 (mixed_small wires, a shard of 8)",
+         "plonky2_tpu_torch/csrc/lde.cu", "plonky2_tpu/ntt/pallas_lde.py:316",
+         k2_rev[(17, 64, 3)], lde_work(17, 64, 3, k2_table_words(6, 3)),
+         ("mesh-mixed_small",)),
         ("K2-rev", "lde_from_values_rev [34, 8192] rate 3 (lookup8 Z + logUp)",
          "plonky2_tpu_torch/csrc/lde.cu", "plonky2_tpu/ntt/pallas_lde.py:316",
          k2_rev[(34, 1 << 13, 3)], lde_work(34, 1 << 13, 3, k2_table_words(13, 3)),
          ("lookup8", "lookup8-load")),
-        ("K2-nat", "lde_from_values [135, 4096] rate 3 (on no prove path)",
+        ("K2-nat", "lde_from_values [136, 4096] rate 3 (mesh-step, one shard)",
          "plonky2_tpu_torch/csrc/lde.cu", "plonky2_tpu/ntt/pallas_lde.py:303",
-         k2_nat[(135, 4096, 3)], lde_work(135, 4096, 3, k2_table_words(12, 3)), None),
+         k2_nat[(136, 4096, 3)], lde_work(136, 4096, 3, k2_table_words(12, 3)),
+         ("mesh-step-d1",)),
+        ("K2-nat", "lde_from_values [34, 4096] rate 3 (mesh-step, a shard of 4)",
+         "plonky2_tpu_torch/csrc/lde.cu", "plonky2_tpu/ntt/pallas_lde.py:303",
+         k2_nat[(34, 4096, 3)], lde_work(34, 4096, 3, k2_table_words(12, 3)),
+         ("mesh-step",)),
         ("K3", "lde_from_values_tiled_rev [135, 16384] rate 3 (config 3 wires)",
          "plonky2_tpu_torch/csrc/lde_tiled.cu", "plonky2_tpu/ntt/pallas_lde_tiled.py:338",
          k3[(135, 1 << 14, 3)], lde_work(135, 1 << 14, 3, k3_table_words(14, 3)),
          ("config3", "config3-load")),
+        ("K3", "lde_from_values_tiled_rev [34, 16384] rate 3 (config 3 wires, a shard of 4)",
+         "plonky2_tpu_torch/csrc/lde_tiled.cu", "plonky2_tpu/ntt/pallas_lde_tiled.py:338",
+         k3[(34, 1 << 14, 3)], lde_work(34, 1 << 14, 3, k3_table_words(14, 3)),
+         ("mesh-config3",)),
         ("K3", "lde_from_values_tiled_rev [135, 32768] rate 3 (keccak4 wires)",
          "plonky2_tpu_torch/csrc/lde_tiled.cu", "plonky2_tpu/ntt/pallas_lde_tiled.py:338",
          k3[(135, 1 << 15, 3)], lde_work(135, 1 << 15, 3, k3_table_words(15, 3)),
@@ -1168,7 +1333,7 @@ def main() -> int:
                         "replaces": replaces, "launches": launches, "max_abs_err": err,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": None})
-    # K2-nat at config 2's shape (on no prove path)
+    # K2-nat at config 2's shape (held, on no path)
     report("K2-nat", "[135, 8192] rate 3 (config 2's shape)", k2_nat[(135, 1 << 13, 3)][1],
            *lde_work(135, 1 << 13, 3, k2_table_words(13, 3)))
     log("[library] none: no PyTorch call computes a Goldilocks NTT or a Poseidon "

@@ -11,6 +11,13 @@ the challenger's hasher, the config's transcript hasher.
 `fri_verify` replays the transcript and checks each query on the host, in
 Python ints; it touches no device.
 
+On a device mesh (`parallel.Mesh`) `fri_prove` takes the composite as the
+mesh's row shards: the first layer's tree (`ShardedMerkleTree`) and fold
+run per shard, since an arity block is contiguous and lies in one shard
+while N/d >= 2^arity; the folded layer is gathered on the mesh's first
+device, where the later layers, the final polynomial, the grind and the
+query gathers run.
+
 Layout (plonky2's): every LDE is stored in BIT-REVERSED domain order —
 index r holds the value at shift * w^rev(r) — so an arity-2^a folding
 coset is the contiguous block [j*2^a, (j+1)*2^a), block j of layer L folds
@@ -25,7 +32,7 @@ import numpy as np
 import torch
 
 from ..field import ext, gl
-from ..merkle import MerkleTree, verify_merkle_proof_s
+from ..merkle import MerkleTree, ShardedMerkleTree, verify_merkle_proof_s
 from ..ntt.ntt import _bitrev_perm, host_powers, intt, intt_from_rev
 from ..transcript import Challenger
 from ..utils.device import DEFAULT_DEVICE, resolve_device
@@ -99,15 +106,29 @@ def _fold(values, beta, shift: int, arity_bits: int):
     Folding coset j is the block values[j*a:(j+1)*a], holding the natural
     coset {x_j * w_a^k} in rev_a(k) order: iNTT_a of each block, then
     Horner at beta/x_j with x_j = shift * w_N^rev(j)."""
-    N = values.shape[0]
-    a = 1 << arity_bits
-    rows = N // a
-    coeffs = _intt_ext_from_rev(values.reshape(rows, a, 2))      # [N/a, a, 2]
+    xinv = _fold_xinv(values.shape[0], shift, arity_bits)
+    return _fold_blocks(values, _fold_twist(beta, xinv, values.device), arity_bits)
+
+
+def _fold_xinv(N: int, shift: int, arity_bits: int) -> np.ndarray:
+    """1/x_j for each folding coset j < N/a, as uint64 (host)."""
+    rows = N >> arity_bits
     w_inv = gl.inv_s(gl.primitive_root_of_unity(N.bit_length() - 1))
     xinv = host_powers(w_inv, rows)[_bitrev_perm(rows.bit_length() - 1)]
-    xinv = (xinv.astype(object) * gl.inv_s(shift) % gl.P).astype(np.uint64)
-    t = ext.mul_base(ext.scalar(beta, values.device).expand(rows, 2),
-                     gl.to_tensor(xinv, values.device))           # [N/a, 2]
+    return (xinv.astype(object) * gl.inv_s(shift) % gl.P).astype(np.uint64)
+
+
+def _fold_twist(beta, xinv: np.ndarray, device):
+    """beta/x_j for the cosets of `xinv` -> [len(xinv), 2] on `device`."""
+    return ext.mul_base(ext.scalar(beta, device).expand(len(xinv), 2),
+                        gl.to_tensor(xinv, device))
+
+
+def _fold_blocks(values, t, arity_bits: int):
+    """Fold the arity blocks of values [rows * a, 2] at their twists t
+    [rows, 2] -> [rows, 2]."""
+    a = 1 << arity_bits
+    coeffs = _intt_ext_from_rev(values.reshape(-1, a, 2))        # [rows, a, 2]
     acc = coeffs[:, a - 1, :]
     for k in range(a - 2, -1, -1):
         acc = ext.add(ext.mul(acc, t), coeffs[:, k, :])
@@ -160,38 +181,61 @@ def grind(challenger: Challenger, pow_bits: int, batch: int | None = None,
 # Prover
 # ------------------------------------------------------------------
 
+def _layer_leaves(values, a: int):
+    """Leaf j = the contiguous arity block j, flattened (c0, c1) pairs, in
+    column layout [2a, rows] for build_cols."""
+    rows = values.shape[0] // a
+    return values.reshape(rows, a, 2).permute(1, 2, 0).reshape(2 * a, rows)
+
+
 def fri_prove(values, degree_bits: int, config: FriConfig,
               challenger: Challenger, shift: int,
-              initial_trees: list[MerkleTree]) -> FriProof:
+              initial_trees: list, mesh=None) -> FriProof:
     """values: [N, 2] ext composite over the LDE coset in BIT-REVERSED
-    order, N = 2^(degree_bits + rate_bits).  initial_trees: the committed
-    oracles whose openings every query round includes."""
-    N = values.shape[0]
+    order, N = 2^(degree_bits + rate_bits), or with `mesh` its list of row
+    shards.  initial_trees: the committed oracles (`MerkleTree` or
+    `ShardedMerkleTree`) whose openings every query round includes."""
+    arities = config.reduction_arity_bits(degree_bits)
+    if mesh is None:
+        N, device = values.shape[0], values.device
+    else:
+        N, device = sum(v.shape[0] for v in values), mesh.devices[0]
+        if not arities or values[0].shape[0] < 1 << arities[0]:
+            values = mesh.gather(values, dim=0)      # an arity block spans shards
     if N != 1 << (degree_bits + config.rate_bits):
         raise ValueError(f"composite has {N} points, want "
                          f"2^{degree_bits + config.rate_bits}")
 
     from ..utils import timed_span
 
-    arities = config.reduction_arity_bits(degree_bits)
     cur = values
     cur_shift = shift
-    layer_trees: list[MerkleTree] = []
+    layer_trees: list = []
     with timed_span("FRI commit/fold layers"):
         for ab in arities:
             a = 1 << ab
-            Nc = cur.shape[0]
-            # leaf j = the contiguous arity block, flattened (c0, c1) pairs;
-            # column layout [2a, rows] feeds build_cols
-            leaves_cols = cur.reshape(Nc // a, a, 2).permute(1, 2, 0) \
-                             .reshape(2 * a, Nc // a)
-            tree = MerkleTree.build_cols(
-                leaves_cols, min(config.cap_height, (Nc // a).bit_length() - 1),
-                challenger.hasher)
+            sharded = isinstance(cur, list)
+            Nc = N if sharded else cur.shape[0]
+            cap_height = min(config.cap_height, (Nc // a).bit_length() - 1)
+            if sharded:
+                tree = ShardedMerkleTree.build_cols(
+                    mesh, [_layer_leaves(c, a) for c in cur], cap_height,
+                    challenger.hasher)
+            else:
+                tree = MerkleTree.build_cols(_layer_leaves(cur, a), cap_height,
+                                             challenger.hasher)
             layer_trees.append(tree)
             challenger.observe_cap(tree.cap_host())
             beta = challenger.get_ext_challenge()
-            cur = _fold(cur, beta, cur_shift, ab)
+            if sharded:
+                # each shard folds its own blocks at their twists
+                xinv = _fold_xinv(Nc, cur_shift, ab)
+                w = len(xinv) // mesh.size
+                cur = mesh.gather([
+                    _fold_blocks(c, _fold_twist(beta, xinv[j * w:(j + 1) * w], c.device),
+                                 ab) for j, c in enumerate(cur)], dim=0)
+            else:
+                cur = _fold(cur, beta, cur_shift, ab)
             cur_shift = pow(cur_shift, a, gl.P)
 
     with timed_span("FRI final poly"):
@@ -206,8 +250,7 @@ def fri_prove(values, degree_bits: int, config: FriConfig,
             challenger.observe_ext(c)
 
     with timed_span("FRI PoW grind"):
-        pow_witness = grind(challenger, config.proof_of_work_bits,
-                            device=values.device)
+        pow_witness = grind(challenger, config.proof_of_work_bits, device=device)
         challenger.observe_element(pow_witness)
         response = challenger.get_challenge()
         if response >= 1 << (64 - config.proof_of_work_bits):

@@ -1,1 +1,1 @@
-from .merkle import MerkleTree, verify_merkle_proof_s  # noqa: F401
+from .merkle import MerkleTree, ShardedMerkleTree, verify_merkle_proof_s  # noqa: F401

@@ -87,9 +87,11 @@ class CircuitData:
     def common(self):
         return self.prover.common
 
-    def prove(self, inputs: dict):
+    def prove(self, inputs: dict, mesh=None):
+        """A proof for `inputs`; with `mesh` (`parallel.make_prover_mesh`
+        or a `parallel.Mesh`), its device phases sharded over the mesh."""
         from .prover import prove
-        return prove(self.prover, inputs)
+        return prove(self.prover, inputs, mesh)
 
     def verify(self, proof) -> None:
         """Raises ValueError if `proof` does not verify (host only)."""

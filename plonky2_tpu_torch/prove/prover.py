@@ -1,7 +1,7 @@
 """The prover: witness -> proof, on the device of the circuit's tensors.
 
-Counterpart of `plonky2_tpu/prove/prover.py` (`_make_kernels` and
-`prove`/`_prove_impl`, without the mesh).  Phases and placement:
+Counterpart of `plonky2_tpu/prove/prover.py` (`_make_kernels`, `prove`
+and `_prove_impl`, with its mesh path).  Phases and placement:
 
 1. witness generation         host (native tape + batched aux fill)
 2. wire LDE + Merkle cap      device: kernel K2 (n <= 2^13) or K3, then K1
@@ -22,6 +22,18 @@ K2, K3); the phases that XLA compiled there (quotient, Z, composite, fold,
 openings) start here as plain torch ops.  Host and device meet only at
 transcript points: a Merkle cap or opening values crossing into the
 Fiat-Shamir challenger.
+
+With a mesh (`parallel.Mesh`, `prove(pd, inputs, mesh=...)`) the host
+phases still run once, and the device phases are placed as the JAX
+prover's `_MeshPlacer` places them: each LDE per poly shard (K2 or K3),
+its pad polys cut off, then the all-to-all to row shards; every Merkle tree
+sharded by rows (`ShardedMerkleTree`, K1 per shard); Z and logUp's running
+sum per row shard over H, their exclusive scans carried across shards
+(`_exclusive_scan_mesh`); the quotient per row shard, its iNTT and LDE on
+the mesh's first device; the openings per poly shard; the FRI composite,
+the first fold layer's tree and its fold per row shard, and the later
+layers, the final polynomial, the grind and the query gathers on the
+first device.  The proof is the same bytes at any mesh size.
 """
 
 from __future__ import annotations
@@ -31,7 +43,7 @@ import torch
 
 from ..field import ext, gl
 from ..fri import fri_prove
-from ..merkle import MerkleTree
+from ..merkle import MerkleTree, ShardedMerkleTree
 from ..ntt import (COSET_SHIFT, eval_polys_at_ext, host_powers,
                    lde_from_values_rev_auto)
 from ..ntt.ntt import _bitrev_perm, coset_lde_rev, intt_from_rev
@@ -66,6 +78,16 @@ def _prefix_sum(r):
     """Exclusive modular prefix sum along dim -1 (logUp's running sum S:
     S[0] = 0, S[i] = sum_{j<i} r[j])."""
     return _exclusive_scan(r, gl.add, 0)
+
+
+def _exclusive_scan_mesh(mesh, shards, op, identity: int):
+    """`_exclusive_scan` of the mesh's row shards side by side along dim -1:
+    each shard's local scan, then op with the scan of all earlier shards'
+    totals (d values a row, scanned on the mesh's first device)."""
+    local = [_exclusive_scan(r, op, identity) for r in shards]
+    totals = mesh.gather([op(lo[..., -1:], r[..., -1:]) for lo, r in zip(local, shards)])
+    carry = _exclusive_scan(totals, op, identity)
+    return [op(lo, carry[..., j:j + 1].to(lo.device)) for j, lo in enumerate(local)]
 
 
 def _scalar(c: int, device) -> torch.Tensor:
@@ -137,27 +159,54 @@ class _Kernels:
             pdn = gl.mul(pdn, cd[:, j])
         return pn, pdn
 
+    def _z_ratio(self, routed, sigma, k_arr, g_pows, beta_c: int, gamma_c: int):
+        """One challenge's chunk ratios [K, m] over the points of g_pows,
+        and their product [m], the factor of Z's grand product."""
+        dev = routed.device
+        beta, gamma = _scalar(beta_c, dev), _scalar(gamma_c, dev)
+        num = gl.add(gl.add(routed, gl.mul(gl.mul(beta, k_arr[:, None]),
+                                           g_pows[None, :])), gamma)
+        den = gl.add(gl.add(routed, gl.mul(beta, sigma)), gamma)
+        pn, pdn = self._chunk_products(num, den)
+        ratio = gl.mul(pn, gl.inv(pdn))              # [K, m]
+        full = ratio[0]
+        for m in range(1, self.K):
+            full = gl.mul(full, ratio[m])
+        return ratio, full
+
+    def _z_partials(self, z, ratio) -> list:
+        """The K - 1 partial products of one challenge from its Z."""
+        pps = []
+        acc = z
+        for m in range(self.K - 1):
+            acc = gl.mul(acc, ratio[m])
+            pps.append(acc)
+        return pps
+
     def z_phase(self, routed, sigma, k_arr, g_pows, betas, gammas):
         """Z and partial-product polynomials over H: [nc + nc*(K-1), n]."""
-        dev = routed.device
         zs, pps = [], []
         for c in range(self.nc):
-            beta, gamma = _scalar(betas[c], dev), _scalar(gammas[c], dev)
-            num = gl.add(gl.add(routed, gl.mul(gl.mul(beta, k_arr[:, None]),
-                                               g_pows[None, :])), gamma)
-            den = gl.add(gl.add(routed, gl.mul(beta, sigma)), gamma)
-            pn, pdn = self._chunk_products(num, den)
-            ratio = gl.mul(pn, gl.inv(pdn))              # [K, n]
-            full = ratio[0]
-            for m in range(1, self.K):
-                full = gl.mul(full, ratio[m])
+            ratio, full = self._z_ratio(routed, sigma, k_arr, g_pows, betas[c], gammas[c])
             z = _prefix_product(full)
             zs.append(z)
-            acc = z
-            for m in range(self.K - 1):
-                acc = gl.mul(acc, ratio[m])
-                pps.append(acc)
+            pps += self._z_partials(z, ratio)
         return torch.stack(zs + pps, dim=0)
+
+    def z_phase_mesh(self, mesh, routed, sigma, k_arr, g_pows, betas, gammas):
+        """`z_phase` on the mesh's row shards over H (each argument but the
+        challenges a list of d shards) -> its row shards; Z's grand product
+        carried across shards."""
+        d = mesh.size
+        zs, pps = [[] for _ in range(d)], [[] for _ in range(d)]
+        for c in range(self.nc):
+            parts = [self._z_ratio(routed[j], sigma[j], k_arr[j], g_pows[j], betas[c],
+                                   gammas[c]) for j in range(d)]
+            z = _exclusive_scan_mesh(mesh, [full for _, full in parts], gl.mul, 1)
+            for j in range(d):
+                zs[j].append(z[j])
+                pps[j] += self._z_partials(z[j], parts[j][0])
+        return [torch.stack(zs[j] + pps[j], dim=0) for j in range(d)]
 
     def lookup_phase(self, routed, lk_masks, tb_masks, lams, lgams):
         """logUp helper polys over H: per challenge, per slot
@@ -166,16 +215,32 @@ class _Kernels:
         exclusive running sum S of sum_s A_s -> [nc * (k + 1), n], per
         challenge [A_0 .. A_{k-1}, S].  routed [nr, n]; the masks [k, n]
         are 0/1 (`_lookup_masks`)."""
-        k, nc = self.lki["k"], self.nc
+        As = self._lookup_As(routed, lk_masks, tb_masks, lams, lgams)
+        S = _prefix_sum(gl.sum_mod(As, dim=1))                    # [nc, n]
+        return self._lookup_block(As, S)
+
+    def lookup_phase_mesh(self, mesh, routed, lk_masks, tb_masks, lams, lgams):
+        """`lookup_phase` on the mesh's row shards over H -> its row shards;
+        the running sum S carried across shards."""
+        As = [self._lookup_As(r, lk, tb, lams, lgams)
+              for r, lk, tb in zip(routed, lk_masks, tb_masks)]
+        S = _exclusive_scan_mesh(mesh, [gl.sum_mod(a, dim=1) for a in As], gl.add, 0)
+        return [self._lookup_block(a, s) for a, s in zip(As, S)]
+
+    def _lookup_As(self, routed, lk_masks, tb_masks, lams, lgams):
+        """The helper polys A [nc, k, m] over the points of `routed`."""
+        k = self.lki["k"]
         dev = routed.device
         x, y, m = routed[0:3 * k:3], routed[1:3 * k:3], routed[2:3 * k:3]
-        mu = gl.sub(gl.mul(tb_masks, m), lk_masks)                # [k, n]
+        mu = gl.sub(gl.mul(tb_masks, m), lk_masks)                # [k, m]
         lam = gl.to_tensor(lams, dev)[:, None, None]
         lgam = gl.to_tensor(lgams, dev)[:, None, None]
-        denom = gl.sub(lgam, gl.add(x, gl.mul(lam, y)))           # [nc, k, n]
-        As = gl.mul(mu, gl.inv(denom))
-        S = _prefix_sum(gl.sum_mod(As, dim=1))                    # [nc, n]
-        return torch.cat([As, S[:, None]], dim=1).reshape(nc * (k + 1), -1)
+        denom = gl.sub(lgam, gl.add(x, gl.mul(lam, y)))           # [nc, k, m]
+        return gl.mul(mu, gl.inv(denom))
+
+    def _lookup_block(self, As, S):
+        """A [nc, k, m] and S [nc, m] -> per challenge [A_0 .. A_{k-1}, S]."""
+        return torch.cat([As, S[:, None]], dim=1).reshape(self.nc * (self.lki["k"] + 1), -1)
 
     def lookup_terms(self, c, wires_c, zs_c, zs_next_c, l1_c, filts, lam, lgam):
         """Challenge c's logUp vanishing terms, in the verifier's order:
@@ -282,19 +347,44 @@ class _Kernels:
                        lams, lgams, pi_hash, sinv_pows):
         """-> (q_polys [nc << rate, n] natural coeffs, q_lde bit-reversed)."""
         zs_next = zs_pp_lde.index_select(-1, self.nxt)
+        tq = self.quotient_values(wires_lde, sel_lde, const_lde, sigma_lde, zs_pp_lde,
+                                  zs_next, x_lde, zh_inv, l1, k_arr, betas, gammas,
+                                  alphas, lams, lgams, pi_hash)
+        return self.quotient_finish(tq, sinv_pows)
+
+    def quotient_values(self, wires_lde, sel_lde, const_lde, sigma_lde, zs_pp_lde,
+                        zs_next, x_lde, zh_inv, l1, *challenges):
+        """The quotient's values [nc, m] over the m points given, in chunks
+        of at most M points."""
         outs = []
-        for s0 in range(0, self.N, self.M):
+        for s0 in range(0, x_lde.shape[-1], self.M):
             def cut(a, s0=s0):
                 return a[..., s0:s0 + self.M]
             outs.append(self.quotient_chunk(
                 cut(wires_lde), cut(sel_lde), cut(const_lde), cut(sigma_lde),
                 cut(zs_pp_lde), cut(zs_next), cut(x_lde), cut(zh_inv), cut(l1),
-                k_arr, betas, gammas, alphas, lams, lgams, pi_hash))
-        tq = torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0]
+                *challenges))
+        return torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0]
+
+    def quotient_finish(self, tq, sinv_pows):
+        """Values [nc, N] bit-reversed -> (q_polys [nc << rate, n], q_lde)."""
         rate = self.common.config.fri.rate_bits
         q_coeffs = gl.mul(intt_from_rev(tq), sinv_pows)
         q_polys = q_coeffs.reshape(self.nc << rate, self.n)
         return q_polys, coset_lde_rev(q_polys, rate)
+
+    def zs_next_mesh(self, mesh, zs_pp_lde):
+        """zs(g*x) on the mesh's row shards.  The step g changes only the
+        natural index's bits above the rate, and a shard is the top log2(d)
+        bits of the bit-reversed index, which come from the bits below it: so
+        for d <= 2^rate the gather stays in each shard; above, it is made on
+        the first device and split."""
+        if mesh.size > 1 << self.common.config.fri.rate_bits:
+            return mesh.rows(mesh.gather(zs_pp_lde).index_select(-1, self.nxt.to(
+                mesh.devices[0])))
+        w = self.N // mesh.size
+        return [z.index_select(-1, (self.nxt[j * w:(j + 1) * w] - j * w).to(z.device))
+                for j, z in enumerate(zs_pp_lde)]
 
     def composite_chunk(self, cs_lde, wires_lde, zs_pp_lde, q_lde, fri_alpha,
                         zeta, zeta_next, o0, o1, alpha_b0, x_lde):
@@ -328,7 +418,7 @@ class _Kernels:
 
     def composite(self, cs_lde, wires_lde, zs_pp_lde, q_lde, *scalars, x_lde):
         outs = []
-        for s0 in range(0, self.N, self.M):
+        for s0 in range(0, x_lde.shape[-1], self.M):
             def cut(a, s0=s0):
                 return a[..., s0:s0 + self.M]
             outs.append(self.composite_chunk(
@@ -366,9 +456,21 @@ def get_kernels(pd) -> _Kernels:
     return k
 
 
-def prove(pd, inputs: dict) -> Proof:
-    with timed_span(f"prove (2^{pd.common.degree_bits} rows)"):
-        return _prove_impl(pd, inputs)
+def prove(pd, inputs: dict, mesh=None) -> Proof:
+    """A proof of `pd`'s circuit for `inputs`; with `mesh` (a
+    `parallel.Mesh` of the circuit's device type, its size dividing n), its
+    device phases sharded over the mesh, to the same bytes."""
+    if mesh is not None:
+        if mesh.device_type != pd.device.type:
+            raise ValueError(f"a mesh of {mesh.device_type} devices cannot prove a circuit "
+                             f"on {pd.device}")
+        if (1 << pd.common.degree_bits) % mesh.size:
+            raise ValueError(f"a mesh of {mesh.size} shards does not divide the "
+                             f"2^{pd.common.degree_bits} rows")
+    span = f"prove (2^{pd.common.degree_bits} rows" + \
+        (f", {mesh.size} shards)" if mesh is not None else ")")
+    with timed_span(span):
+        return _prove_impl(pd, inputs, mesh)
 
 
 def witness_matrix(pd, inputs: dict):
@@ -410,7 +512,28 @@ def _aux_fill(pd, wires_host) -> None:
             gate.aux_fill(np.asarray(rows, dtype=np.int64), wires_host)
 
 
-def _prove_impl(pd, inputs: dict) -> Proof:
+def _mesh_lde(mesh, poly_shards, p: int, rate: int):
+    """Poly shards of values over H, zero-padded (`Mesh.polys`) -> (the
+    coefficients' poly shards, the LDE's row shards): per shard the commit
+    path's LDE (K2 or K3 on the card), the pad polys cut off before
+    anything is committed or opened, then the all-to-all."""
+    outs = [lde_from_values_rev_auto(s, rate) for s in poly_shards]
+    coeffs = mesh.unpad([c for c, _ in outs], p)
+    return coeffs, mesh.polys_to_rows(mesh.unpad([lde for _, lde in outs], p))
+
+
+def _commit(mesh, lde, cap_height: int, hasher):
+    """The Merkle tree of an LDE: whole, or over its row shards."""
+    if mesh is None:
+        return MerkleTree.build_cols(lde, cap_height, hasher)
+    return ShardedMerkleTree.build_cols(mesh, lde, cap_height, hasher)
+
+
+def _prove_impl(pd, inputs: dict, mesh=None) -> Proof:
+    """The prover's phases.  With a mesh, the LDEs, every domain-wide
+    tensor and the Merkle trees are lists of the mesh's shards (poly
+    shards for the coefficients, row shards for the rest), and the
+    unsharded steps run on its first device."""
     common = pd.common
     cfg = common.config
     fri_cfg = cfg.fri
@@ -419,7 +542,7 @@ def _prove_impl(pd, inputs: dict) -> Proof:
     N = n << rate
     nc = cfg.num_challenges
     nr = cfg.num_routed_wires
-    dev = pd.device
+    dev = pd.device if mesh is None else mesh.devices[0]
     kernels = get_kernels(pd)
 
     # ---- 1. witness ----
@@ -434,9 +557,13 @@ def _prove_impl(pd, inputs: dict) -> Proof:
     with timed_span("wire LDE + Merkle commit", nbytes=_wb + _mb):
         with timed_span("wire LDE (iNTT + coset NTT)", nbytes=_wb):
             wires = gl.to_tensor(wires_host, dev)
-            wires_coeffs, wires_lde = lde_from_values_rev_auto(wires, rate)
+            if mesh is None:
+                wires_coeffs, wires_lde = lde_from_values_rev_auto(wires, rate)
+            else:
+                wires_coeffs, wires_lde = _mesh_lde(mesh, mesh.polys(wires),
+                                                    cfg.num_wires, rate)
         with timed_span("wire Merkle tree (leaf hash + levels)", nbytes=_mb):
-            wires_tree = MerkleTree.build_cols(wires_lde, fri_cfg.cap_height, th)
+            wires_tree = _commit(mesh, wires_lde, fri_cfg.cap_height, th)
             wires_tree.cap_host()
 
     ch = Challenger(th)
@@ -457,25 +584,40 @@ def _prove_impl(pd, inputs: dict) -> Proof:
     _zn = kernels.n_zb + nc * kernels.pcc
     with timed_span("permutation Z polys + commit",
                     nbytes=8 * (3 * nr * n + _zn * (2 * n + 2 * N))):
-        zs_pp_vals = kernels.z_phase(wires[:nr], pd.sigma_polys, k_arr, g_pows,
-                                     betas, gammas)
+        if mesh is None:
+            zs_pp_vals = kernels.z_phase(wires[:nr], pd.sigma_polys, k_arr, g_pows,
+                                         betas, gammas)
+        else:
+            routed = mesh.rows(wires[:nr])
+            zs_pp_vals = kernels.z_phase_mesh(mesh, routed, mesh.rows(pd.sigma_polys),
+                                              mesh.replicate(k_arr), mesh.rows(g_pows),
+                                              betas, gammas)
         if lki["has"]:
             with timed_span("lookup helper polys (logUp)"):
                 lk_masks, tb_masks = _lookup_masks(pd, lki)
-                zs_pp_vals = torch.cat([zs_pp_vals, kernels.lookup_phase(
-                    wires[:nr], lk_masks, tb_masks, lams, lgams)], dim=0)
-        zs_pp_coeffs, zs_pp_lde = lde_from_values_rev_auto(zs_pp_vals, rate)
-        zs_tree = MerkleTree.build_cols(zs_pp_lde, fri_cfg.cap_height, th)
+                if mesh is None:
+                    zs_pp_vals = torch.cat([zs_pp_vals, kernels.lookup_phase(
+                        wires[:nr], lk_masks, tb_masks, lams, lgams)], dim=0)
+                else:
+                    lk_vals = kernels.lookup_phase_mesh(
+                        mesh, routed, mesh.rows(lk_masks), mesh.rows(tb_masks), lams,
+                        lgams)
+                    zs_pp_vals = [torch.cat([z, lk], dim=0)
+                                  for z, lk in zip(zs_pp_vals, lk_vals)]
+        if mesh is None:
+            zs_pp_coeffs, zs_pp_lde = lde_from_values_rev_auto(zs_pp_vals, rate)
+        else:
+            zs_pp_coeffs, zs_pp_lde = _mesh_lde(mesh, mesh.rows_to_polys(zs_pp_vals),
+                                                _zn, rate)
+        zs_tree = _commit(mesh, zs_pp_lde, fri_cfg.cap_height, th)
         zs_tree.cap_host()
     ch.observe_cap(zs_tree.cap_host())
     alphas = ch.get_n_challenges(nc)
 
     # ---- 4. quotient ----
     sel_count = len(common.selector_info.groups)
-    cs_lde = pd.cs_lde
-    sel_lde = cs_lde[:sel_count]
-    const_lde = cs_lde[sel_count:sel_count + common.num_constants_polys]
-    sigma_lde = cs_lde[sel_count + common.num_constants_polys:]
+    const_end = sel_count + common.num_constants_polys
+    cs_lde = pd.cs_lde if mesh is None else mesh.rows(pd.cs_lde)
 
     # Every domain table is in bit-reversed order (index r <-> point
     # shift * w^rev(r)) to match the LDE storage layout (fri/fri.py).
@@ -491,14 +633,28 @@ def _prove_impl(pd, inputs: dict) -> Proof:
     l1 = gl.mul(zh, gl.inv(gl.mul(gl.sub(x_lde, torch.ones_like(x_lde)),
                                   gl.full_like(x_lde, n))))
     sinv_pows = gl.powers(gl.inv_s(COSET_SHIFT), N, dev)
+    challenges = (betas, gammas, alphas, lams, lgams, pi_hash)
 
-    _qr = (cs_lde.shape[0] + cfg.num_wires + zs_pp_lde.shape[0]) * N
+    _qr = (pd.cs_lde.shape[0] + cfg.num_wires + _zn) * N
     with timed_span("quotient evaluation + commit",
                     nbytes=8 * (_qr + (nc << rate) * (3 * N))):
-        q_polys, q_lde = kernels.quotient_phase(
-            wires_lde, sel_lde, const_lde, sigma_lde, zs_pp_lde, x_lde, zh_inv,
-            l1, k_arr, betas, gammas, alphas, lams, lgams, pi_hash, sinv_pows)
-        q_tree = MerkleTree.build_cols(q_lde, fri_cfg.cap_height, th)
+        if mesh is None:
+            q_polys, q_lde = kernels.quotient_phase(
+                wires_lde, cs_lde[:sel_count], cs_lde[sel_count:const_end],
+                cs_lde[const_end:], zs_pp_lde, x_lde, zh_inv, l1, k_arr, *challenges,
+                sinv_pows)
+        else:
+            # per row shard; the values gathered for the iNTT and the LDE
+            x_lde, zh_inv, l1 = mesh.rows(x_lde), mesh.rows(zh_inv), mesh.rows(l1)
+            zs_next = kernels.zs_next_mesh(mesh, zs_pp_lde)
+            tq = [kernels.quotient_values(w, c[:sel_count], c[sel_count:const_end],
+                                          c[const_end:], z, zn, x, zi, l, k, *challenges)
+                  for w, c, z, zn, x, zi, l, k in zip(
+                      wires_lde, cs_lde, zs_pp_lde, zs_next, x_lde, zh_inv, l1,
+                      mesh.replicate(k_arr))]
+            q_polys, q_lde = kernels.quotient_finish(mesh.gather(tq), sinv_pows)
+            q_lde = mesh.rows(q_lde)
+        q_tree = _commit(mesh, q_lde, fri_cfg.cap_height, th)
         q_tree.cap_host()
     ch.observe_cap(q_tree.cap_host())
     zeta = ch.get_ext_challenge()
@@ -511,12 +667,25 @@ def _prove_impl(pd, inputs: dict) -> Proof:
         arr = gl.from_tensor(eval_polys_at_ext(coeffs, point))
         return [(int(a), int(b)) for a, b in arr]
 
+    def open_shards(shards, point):
+        """Each poly shard at `point` on its device, in polynomial order."""
+        return [v for s in shards for v in open_at(s, point)]
+
     with timed_span("openings at zeta"):
-        cs_open = open_at(pd.cs_coeffs, zeta)
-        wires_open = open_at(wires_coeffs, zeta)
-        zs_pp_open = open_at(zs_pp_coeffs, zeta)
-        zs_next_open = open_at(zs_pp_coeffs[kernels.r1_idx], zeta_next)
-        q_open = open_at(q_polys, zeta)
+        if mesh is None:
+            cs_open = open_at(pd.cs_coeffs, zeta)
+            wires_open = open_at(wires_coeffs, zeta)
+            zs_pp_open = open_at(zs_pp_coeffs, zeta)
+            zs_next_open = open_at(zs_pp_coeffs[kernels.r1_idx], zeta_next)
+            q_open = open_at(q_polys, zeta)
+        else:
+            cs_open = open_shards(mesh.unpad(mesh.polys(pd.cs_coeffs),
+                                             pd.cs_coeffs.shape[0]), zeta)
+            wires_open = open_shards(wires_coeffs, zeta)
+            zs_pp_open = open_shards(zs_pp_coeffs, zeta)
+            zs_next_open = open_at(mesh.gather(zs_pp_coeffs, dim=0)[kernels.r1_idx],
+                                   zeta_next)
+            q_open = open_shards(mesh.unpad(mesh.polys(q_polys), q_polys.shape[0]), zeta)
 
     openings = OpeningSet(cs_open, wires_open, zs_pp_open, zs_next_open, q_open)
     for e in openings.observe_order():
@@ -532,13 +701,18 @@ def _prove_impl(pd, inputs: dict) -> Proof:
     for v in reversed(zs_next_open):
         o1 = ext.add_s(ext.mul_s(o1, fri_alpha), v)
     alpha_b0 = ext.pow_s(fri_alpha, len(batch0_open))
+    scalars = (fri_alpha, zeta, zeta_next, o0, o1, alpha_b0)
     with timed_span("FRI (composite + commit phases + queries)",
                     nbytes=8 * (_qr + (nc << rate) * N + 2 * 2 * N)):
-        composite = kernels.composite(
-            cs_lde, wires_lde, zs_pp_lde, q_lde, fri_alpha, zeta, zeta_next,
-            o0, o1, alpha_b0, x_lde=x_lde)
+        if mesh is None:
+            composite = kernels.composite(cs_lde, wires_lde, zs_pp_lde, q_lde, *scalars,
+                                          x_lde=x_lde)
+        else:
+            composite = [kernels.composite(c, w, z, q, *scalars, x_lde=x)
+                         for c, w, z, q, x in zip(cs_lde, wires_lde, zs_pp_lde, q_lde,
+                                                  x_lde)]
         fri = fri_prove(composite, common.degree_bits, fri_cfg, ch, COSET_SHIFT,
-                        [pd.cs_tree, wires_tree, zs_tree, q_tree])
+                        [pd.cs_tree, wires_tree, zs_tree, q_tree], mesh=mesh)
 
     return Proof(
         wires_cap=wires_tree.cap_host(),

@@ -2,8 +2,8 @@
 
 Counterpart of `plonky2_tpu/utils/timing.py`.  A process-global stack of
 nested spans; the prover opens one per phase.  torch launches CUDA work
-asynchronously, so while profiling is on a span calls
-`torch.cuda.synchronize()` before it reads the clock and the device work a
+asynchronously, so while profiling is on a span synchronizes every card
+before it reads the clock and the device work a
 phase issued lands in that phase.  With profiling off a span costs nothing
 and forces no synchronisation.
 
@@ -24,10 +24,12 @@ _STACK: list["_Span"] = []
 _LAST: list["_Span"] = []
 
 
-def _sync():
+def sync_cards():
+    """Wait for every card: a mesh's shards may lie on several."""
     import torch
     if torch.cuda.is_available() and torch.cuda.is_initialized():
-        torch.cuda.synchronize()
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
 
 
 class _Span:
@@ -85,14 +87,14 @@ def timed_span(name: str, nbytes: int | None = None):
     if not _ENABLED:
         yield
         return
-    _sync()
+    sync_cards()
     span = _Span(name, nbytes)
     parent = _STACK[-1] if _STACK else None
     _STACK.append(span)
     try:
         yield
     finally:
-        _sync()
+        sync_cards()
         span.elapsed = time.perf_counter() - span.start
         _STACK.pop()
         if parent is not None:

@@ -1,8 +1,8 @@
 """Write tests/torch_port_vectors.json: the JAX package's proof digests
 that the PyTorch port (`plonky2_tpu_torch`) must reproduce byte for byte.
 
-Nineteen entries, built, proved and verified with the JAX package on the
-CPU:
+Twenty-one entries.  Nineteen are circuits, built, proved and verified
+with the JAX package on the CPU:
 
 * `tiny`: the golden tiny circuit of tests/test_golden_vectors.py (its
   proof digest is also in tests/golden_vectors.json);
@@ -56,7 +56,19 @@ CPU:
   the JAX builder: 47,616 lookups into a 256-entry 8-bit S-box under
   `standard_recursion_config`, 2^13 rows.
 
-For each: degree_bits, num_gates, the constants/sigmas cap, the public
+The other two are the JAX package's `parallel.sharded_prove_step` (one
+sharded commit and constraint pass) on its 8-device CPU mesh, for wires
+drawn by `mesh_step_wires` from `np.random.RandomState(0)`, rate 3:
+
+* `mesh_step_small`: wires [8, 32], cap height 2 (tests/test_torch_mesh.py);
+* `mesh_step`: wires [136, 2^12], cap height 4 (`chip_smoke.py`).
+
+Each holds its shape, rate, cap height and mesh size, the cap as integers
+and the sha256 of the sample (the [N] uint64 vector, little-endian).  The
+script sets XLA_FLAGS to 8 host devices before JAX starts its CPU client,
+as tests/conftest.py does.
+
+For each circuit: degree_bits, num_gates, the constants/sigmas cap, the public
 inputs, the proof length, the proof sha256, the sha256 of the
 serialized verifier key, `prover_data_sha256` (the sha256 of
 `serialize_prover_data(data.prover)`, the circuit cache's bytes) and
@@ -583,11 +595,43 @@ def _circuits(ir):
     }
 
 
+MESH_DEVICES = 8
+
+
+def mesh_step_wires(shape):
+    """The wires [P, n] of a `mesh_step` entry: uint64 values below 2^62
+    from np.random.RandomState(0), as `__graft_entry__.entry()` draws them."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    return rng.randint(0, 1 << 62, size=shape).astype(np.uint64)
+
+
+def mesh_step(shape, cap_height: int, rate_bits: int = 3) -> dict:
+    """The JAX `sharded_prove_step` on the 8-device CPU mesh: its cap and
+    the sha256 of its sample."""
+    import jax
+    import numpy as np
+    from plonky2_tpu.parallel import make_prover_mesh, sharded_prove_step
+    if len(jax.devices()) < MESH_DEVICES:
+        raise SystemExit(f"JAX has {len(jax.devices())} devices, not {MESH_DEVICES}: "
+                         f"XLA_FLAGS was set after JAX started its CPU client")
+    cap, sample = sharded_prove_step(make_prover_mesh(MESH_DEVICES),
+                                     mesh_step_wires(shape), rate_bits, cap_height)
+    sample = np.ascontiguousarray(np.asarray(sample), dtype="<u8")
+    return {"shape": list(shape), "rate_bits": rate_bits, "cap_height": cap_height,
+            "devices": MESH_DEVICES,
+            "cap": [[int(x) for x in row] for row in np.asarray(cap)],
+            "sample_sha256": hashlib.sha256(sample.tobytes()).hexdigest()}
+
+
 # Entries recorded by a function of their own: {"inner": ..., "outer": ...}
 # (an inner circuit proved, then an outer circuit verifying it), two small
-# Keccak circuits, or one circuit proved for several witnesses.
+# Keccak circuits, one circuit proved for several witnesses, or one
+# sharded step on the JAX mesh.
 OWN_RECORD = {"small_recursion": small_recursion, "config5": config5,
-             "small_keccak": small_keccak, "keccak4": keccak4}
+             "small_keccak": small_keccak, "keccak4": keccak4,
+             "mesh_step_small": lambda ir: mesh_step((8, 32), 2),
+             "mesh_step": lambda ir: mesh_step((136, 1 << 12), 4)}
 
 
 def load_fixture() -> dict:
@@ -599,6 +643,10 @@ def compute_vectors(only=None, build_only=()) -> dict:
     """Every entry (or those named in `only`, the rest kept from the
     fixture); entries in `build_only` are built, not proved."""
     sys.path.insert(0, ROOT)
+    flags = os.environ.get("XLA_FLAGS", "")
+    if "xla_force_host_platform_device_count" not in flags:
+        os.environ["XLA_FLAGS"] = (
+            f"{flags} --xla_force_host_platform_device_count={MESH_DEVICES}").strip()
     import jax
     jax.config.update("jax_platforms", "cpu")
     from plonky2_tpu import ir
