@@ -6,15 +6,16 @@ circuit (u32 mul/add/xor/sub/compare, 2^13 rows) and the config-3
 circuit (51 chained depth-32 SMT process proofs, 2^14 rows), all under
 standard_recursion_config, the config-4 circuit (one secp256k1 ECDSA
 verify, 55,421 gates, 2^16 rows, under standard_ecc_config: 136 wires)
-and config 5 (four zkDSA proofs of a 2^2-row circuit and the 2^13-row
+and its batch of 2 (config4-b2, 2^17 rows), config 5 (four zkDSA proofs of a 2^2-row circuit and the 2^13-row
 circuit that verifies them in-circuit, both under test_config), config 1
 under poseidon2_config (every two_to_one a Poseidon2Gate row), the
 reference's 4-block Keccak-256 circuit (24,883 gates, 2^15 rows) under
 keccak_config (Keccak Merkle trees, transcript and grind), and the two
 lookup circuits: the JAX package's `mixed_small` (u32, xor, a lookup and
 nonnative ops, 2^6 rows under test_config) and `lookup8` (47,616 lookups
-into an 8-bit S-box, 2^13 rows under standard_recursion_config) — on the
-card,
+into an 8-bit S-box, 2^13 rows under standard_recursion_config), and
+the batch-ECDSA perf driver (`bench.perf.run`) at the reference perf
+binary's default batch of 20 (2^20 rows) — on the card,
 after checking each hand-written kernel against its plain torch version
 there, and verifies every proof with the port's host verifier:
 
@@ -28,7 +29,8 @@ there, and verifies every proof with the port's host verifier:
   3. field       csrc/goldilocks.cuh against the plain field ops, K3's
                  lazy butterfly included
   4. K1          Poseidon kernel against the plain permutation, with both
-                 MDS layers (small-entry split and generic mulmods), and
+                 MDS layers (small-entry split and generic mulmods), at
+                 2^15 to 2^23 states (2^23: perf-b20's wires tree), and
                  at ragged batch widths
   5. K2          LDE kernel, bit-reversed (K2-rev) and natural (K2-nat)
                  order, against the plain LDEs, at config 1's shape, config
@@ -37,9 +39,10 @@ there, and verifies every proof with the port's host verifier:
                  0, 1, 3 and 6
   6. K3          tiled four-step LDE kernel against the plain LDE, at
                  config 3's wire and Z shapes, config 4's wire shape
-                 [136, 2^16], 2^18 to 2^20 (three register groups), the
-                 odd sizes 2^15 and 2^17 (n1 != n2), one polynomial, and
-                 rates 0, 1 and 6
+                 [136, 2^16], perf-b20's [136, 2^20] (the plain version
+                 on slices of 34 polys), 2^18 to 2^20 (three register
+                 groups), the odd sizes 2^15 and 2^17 (n1 != n2), one
+                 polynomial, and rates 0, 1 and 6
   7. tiny        the golden tiny circuit's proof sha256
   8. config 1    proof bytes equal the JAX package's (tests/torch_port_vectors.json);
                  the built circuit saved to bytes (serialize_prover_data:
@@ -55,6 +58,8 @@ there, and verifies every proof with the port's host verifier:
  11. config 4    the same; then K3 against the plain LDE at its wires,
                  constants/sigmas and Z/partial-products commit shapes, read
                  from its built common data
+     config4-b2  `build_ecdsa(2)` (2^17 rows): the same, against the
+                 fixture's `config4_b2`
  12. config1-p2 config 1's chain under poseidon2_config: the steps of 8
  13. keccak4     `bench.build_keccak256(4)`: the builder's graph digest,
                  the build, the four Ethereum trie nodes of
@@ -100,8 +105,21 @@ there, and verifies every proof with the port's host verifier:
                  against the plain LDE at the inner circuit's three commit
                  shapes (n = 4, read from its common data); then the steps
                  of 8 for the outer circuit of 2^13 rows
+ 18. perf-b20    `build_ecdsa(20)` (2^20 rows): its gate count and graph
+                 digest against the fixture's `config4_b20` (traced by the
+                 JAX package without a build; the digest taken in a
+                 forked copy of the traced builder beside the build and
+                 proves), then `bench.perf.run`: the
+                 build, the verifier-key round trip, a cold and a warm
+                 prove (the same bytes), the proof round trip and the
+                 verify with the round-tripped key; its walls, phase spans
+                 and peak device memory.  Its wall is nearly all
+                 host Python, so it runs in a second process on the same
+                 card (`chip_smoke.py --perf-b20-process`), started before
+                 phase 2 and waited for after phase 17; its output is
+                 printed then
 
-Every proof phase (7-17) ends with a verify step: the port's verifier
+Every proof phase (7-18) ends with a verify step: the port's verifier
 accepts the card's proof and rejects it with one public input (the wires
 cap where there is none) or one opening changed, and the verifier key's
 bytes have the fixture's sha256 and read back to the same bytes.
@@ -112,7 +130,8 @@ launch counts are set to 0 just before each main path (a configuration's
 build and first prove (keccak4: its four proves), its load from bytes, and
 config 5's inner circuit, its four proofs and the outer trace; mixed_small
 and lookup8 like configs 1-4; each sharded step and each prove with
-`mesh=`) and read just after it.
+`mesh=`; perf-b20's trace, build, two proves and verify) and read just
+after it.
 Each kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its 32-bit integer multiplies
 over 64 per clock per SM x 132 SMs x the card's maximum SM clock.  Each
@@ -476,17 +495,20 @@ def phase_field(device):
 
 def phase_k1(device):
     import numpy as np
+    import torch
     from plonky2_tpu_torch.field import gl
     from plonky2_tpu_torch.hashes import cuda_poseidon, poseidon
     rng = np.random.RandomState(1)
     out = {}
-    for b in (1 << 15, 1 << 17, 1 << 20):
+    # 2^23: the leaves of perf-b20's wires tree (2^20 rows, rate 3)
+    for b in (1 << 15, 1 << 17, 1 << 20, 1 << 23):
         s = gl.to_tensor(rand_field(rng, (12, b)), device)
         got = cuda_poseidon.permute_cols_cuda(s)
         want = poseidon.permute_cols_plain(s)
         err = require_equal(f"K1 [12, {b}]", got, want)
         ms = time_ms(lambda: cuda_poseidon.permute_cols_cuda(s))
-        plain_ms = time_ms(lambda: poseidon.permute_cols_plain(s), launches=1)
+        plain_ms = time_ms(lambda: poseidon.permute_cols_plain(s), launches=1,
+                           brackets=2 if b > 1 << 20 else 5)
         log(f"[K1] Poseidon [12, {b}]: bit-equal; kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms")
         out[b] = (err, ms, plain_ms)
@@ -506,6 +528,8 @@ def phase_k1(device):
             require_equal(f"K1 [12, {b}] small_mds={small}",
                           cuda_poseidon.permute_cols_cuda(s, small_mds=small), want)
     log("[K1] ragged batches 1, 1000 and 2^17 + 3: bit-equal on both MDS layers")
+    # the card is shared with the perf-b20 process: give back the cache
+    torch.cuda.empty_cache()
     return out
 
 
@@ -551,6 +575,23 @@ def phase_k2(device):
     return rev, nat
 
 
+# Polys a slice of the plain LDE at [136, 2^20] rate 3: ~2.3 GB of output
+# and its temporaries a slice.
+K3_PLAIN_ROWS = 34
+
+
+def plain_by_slices(values, rate_bits):
+    """The plain LDE (`ntt.lde_from_values_rev`) over slices of
+    K3_PLAIN_ROWS polys, joined: the same (coeffs, LDE) as one call."""
+    import torch
+    from plonky2_tpu_torch import ntt
+    outs = [ntt.lde_from_values_rev(values[i:i + K3_PLAIN_ROWS], rate_bits)
+            for i in range(0, values.shape[0], K3_PLAIN_ROWS)]
+    coeffs = torch.cat([c for c, _ in outs])
+    lde = torch.cat([lde for _, lde in outs])
+    return coeffs, lde
+
+
 def phase_k3(device):
     import numpy as np
     import torch
@@ -564,6 +605,11 @@ def phase_k3(device):
     out.update(_lde_check("K3", device, rng, kernel, plain,
                           ((135, 1 << 15), (135, 1 << 16), (136, 1 << 16), (20, 1 << 17),
                            (2, 1 << 18), (2, 1 << 19), (2, 1 << 20)), 3, plain_brackets=2))
+    # perf-b20's wires [136, 2^20] (1.14 G LDE elements): the plain version
+    # runs on slices of K3_PLAIN_ROWS polys (each poly's transform is
+    # independent of the others) so that its temporaries fit the card
+    out.update(_lde_check("K3", device, rng, kernel, plain_by_slices, ((136, 1 << 20),), 3,
+                          plain_brackets=1))
     out.update(_lde_check("K3", device, rng, kernel, plain, ((3, 1 << 14),), 6))
     # one polynomial, and the rates whose coset loop runs once or twice
     out.update(_lde_check("K3", device, rng, kernel, plain, ((1, 1 << 14),), 3))
@@ -637,13 +683,15 @@ def verify_step(tag: str, data, proof, want: dict) -> None:
         raise AssertionError(f"{tag}: the verifier accepted a proof with {what} changed")
     vk = serialize_verifier_data(data.verifier)
     digest = hashlib.sha256(vk).hexdigest()
-    if digest != want["verifier_data_sha256"]:
+    # the fixture has no verifier key for a circuit it could not build
+    if "verifier_data_sha256" in want and digest != want["verifier_data_sha256"]:
         raise AssertionError(f"{tag} verifier key sha256 {digest} != fixture "
                              f"{want['verifier_data_sha256']}")
     if serialize_verifier_data(deserialize_verifier_data(vk)) != vk:
         raise AssertionError(f"{tag} verifier key does not round-trip")
+    equals = "equals the fixture" if "verifier_data_sha256" in want else "(no fixture)"
     log(f"[{tag}] verify {verify_s:.3f} s (host; {CARD}): accepted; verifier key "
-        f"{len(vk)} bytes, sha256 {digest} equals the fixture and round-trips")
+        f"{len(vk)} bytes, sha256 {digest} {equals} and round-trips")
 
 
 def reset_launches():
@@ -656,10 +704,8 @@ def reset_launches():
 
 
 def read_launches():
-    from plonky2_tpu_torch.hashes import cuda_poseidon
-    from plonky2_tpu_torch.ntt import cuda_lde, cuda_lde_tiled
-    return {"K1": cuda_poseidon.LAUNCHES, "K2-rev": cuda_lde.LAUNCHES,
-            "K2-nat": cuda_lde.LAUNCHES_NAT, "K3": cuda_lde_tiled.LAUNCHES}
+    from plonky2_tpu_torch.bench import kernel_launches
+    return kernel_launches()
 
 
 def phase_config(tag: str, device, build, want: dict, check=None):
@@ -803,7 +849,10 @@ def phase_config(tag: str, device, build, want: dict, check=None):
         for line in tree.lines():
             log("  " + line)
     verify_step(tag, data, proof, want)
-    return launches, data.common, trees, (loaded, inputs)
+    common = data.common
+    del data, proof
+    torch.cuda.empty_cache()
+    return launches, common, trees, (loaded, inputs)
 
 
 def phase_config5_inner(device):
@@ -1158,6 +1207,162 @@ def phase_mesh(device, circuits):
     return launches
 
 
+def fork_digest(builder):
+    """Start `graph_digest(builder)` in a forked copy of this process: the
+    builder as it stands (before its build), hashed in pure Python (the
+    copy makes no CUDA call) while this process goes on.  -> (pid, the
+    read end of a pipe that gets {"digest", "seconds"} or {"error"})."""
+    from plonky2_tpu_torch.ir.digest import graph_digest
+    r, w = os.pipe()
+    pid = os.fork()
+    if pid == 0:
+        os.close(r)
+        code = 0
+        try:
+            t0 = time.perf_counter()
+            msg = {"digest": graph_digest(builder), "seconds": time.perf_counter() - t0}
+        except BaseException as e:       # report it to the parent, then exit
+            msg, code = {"error": repr(e)}, 1
+        os.write(w, json.dumps(msg).encode())
+        os._exit(code)
+    os.close(w)
+    return pid, r
+
+
+def join_digest(pid: int, r: int) -> dict:
+    """The forked digest's message, once it has exited."""
+    with os.fdopen(r) as f:
+        raw = f.read()
+    _, status = os.waitpid(pid, 0)
+    return json.loads(raw) if raw else {"error": f"no output (wait status {status})"}
+
+
+def phase_perf_b20(device):
+    """The batch-ECDSA perf driver (`bench.perf.run`) at the reference perf
+    binary's default batch of 20 (`build_ecdsa(20)`, 2^20 rows): the
+    builder's gate count and graph digest against the fixture's
+    `config4_b20` (the JAX package traced it without a build; the digest,
+    minutes of Python, is taken in a forked copy of the traced builder
+    while this process builds and proves), then the driver's steps (build,
+    the verifier-key round trip, a cold and a warm prove, the proof round
+    trip, the verify with the round-tripped key and proof); the two proofs
+    must have the same bytes; then the verify step on the round-tripped
+    key and proof.  Runs in a process of its own (`perf_b20_main`).  ->
+    ({"perf-b20": launches}, counted from 0 just after the trace, which
+    launches nothing, and read just after the verify; the driver's
+    result)."""
+    import signal
+    import types
+    from plonky2_tpu_torch.bench import build_ecdsa, perf
+    from plonky2_tpu_torch.prove.verifier import verify
+    tag, want = "perf-b20", fixture("config4_b20")
+    t0 = time.perf_counter()
+    b, inputs, _meta = build_ecdsa(want["batch"])
+    trace_s = time.perf_counter() - t0
+    num_gates = b.num_gates()
+    if num_gates != want["num_gates"]:
+        raise AssertionError(f"{tag}: {num_gates} gates, the JAX fixture {want['num_gates']}")
+    log(f"[{tag}] batch={want['batch']} num_gates={num_gates} (trace {trace_s:.3f}s; {CARD})")
+    # before the first CUDA call of this process: the fork copies no context
+    digest_pid, digest_pipe = fork_digest(b)
+    try:
+        reset_launches()
+        res = perf.run(b, inputs, device, emit=lambda line: log(f"[{tag}] {line}"))
+        del b, inputs
+        launches = {tag: read_launches()}
+        msg = join_digest(digest_pid, digest_pipe)
+        digest_pid = None
+    finally:
+        if digest_pid is not None:
+            os.kill(digest_pid, signal.SIGKILL)
+            join_digest(digest_pid, digest_pipe)
+    if msg.get("digest") != want["graph_sha256"]:
+        raise AssertionError(f"{tag} graph digest {msg} differs from the JAX fixture's "
+                             f"{want['graph_sha256']}")
+    log(f"[{tag}] builder graph ({num_gates} gates) sha256 {msg['digest']} equals the JAX "
+        f"fixture (taken of the traced builder in a forked copy, {msg['seconds']:.3f} s; "
+        f"{CARD})")
+    cold, warm = res["proofs"]
+    if cold != warm:
+        raise AssertionError(f"{tag}: the cold and the warm prove gave other bytes")
+    log(f"[{tag}] cold and warm proofs: {len(cold)} bytes each, the same bytes, sha256 "
+        f"{hashlib.sha256(cold).hexdigest()}")
+    log(f"[{tag}] walls: trace {trace_s:.3f} s, build {res['build_s']:.3f} s, prove "
+        f"(cold, warm) {res['prove_s'][0]:.3f} s, {res['prove_s'][1]:.3f} s, verify "
+        f"{res['verify_s']:.3f} s; peak device memory: build "
+        f"{res['peak_bytes']['build'] / 2**20:.1f} MiB, proves "
+        f"{res['peak_bytes']['proves'] / 2**20:.1f} MiB ({CARD})")
+    for step in perf.STEPS:
+        log(f"[{tag}] launches, {step}: "
+            + ", ".join(f"{k} {v}" for k, v in res["launches"][step].items()) + f" ({CARD})")
+    log(f"[{tag}] launches on the path: "
+        + ", ".join(f"{k} {v}" for k, v in launches[tag].items()) + f" ({CARD})")
+    for step in perf.STEPS:
+        log(f"[{tag}] phase spans, {step} (synchronized; {CARD}):")
+        for line in res["trees"][step].lines():
+            log("  " + line)
+    vd = res["vd"]
+    checked = types.SimpleNamespace(verifier=vd, verify=lambda proof: verify(vd, proof))
+    verify_step(tag, checked, res["proof"], want)
+    return launches, res
+
+
+# The longest the perf-b20 process may run, from its start just before
+# the kernels' build (the whole run must end within 1200 s).
+PERF_B20_TIMEOUT_S = 1080
+
+# chip_smoke.py's argument that runs the perf-b20 path alone: the process
+# that `start_perf_b20` starts beside the other paths.
+PERF_B20_FLAG = "--perf-b20-process"
+
+
+def start_perf_b20():
+    """Start the perf-b20 path (`phase_perf_b20`) in a second process on
+    the same card, beside the other paths: most of its wall (the trace,
+    the build's copy classes and generator schedule, the first prove's
+    tape) is host Python, which runs on one core at 2^20 rows.  Its
+    kernel counts are its own (0 when it starts, reset just before its
+    trace); its output goes to a temporary file.  -> (process, file)."""
+    import tempfile
+    out = tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), PERF_B20_FLAG],
+                            stdout=out, stderr=subprocess.STDOUT, cwd=ROOT)
+    return proc, out
+
+
+def finish_perf_b20(proc, out, deadline: float) -> dict:
+    """Wait for the perf-b20 process (killed at `deadline`, a
+    `time.perf_counter()` value), print its output, and fail if it failed.
+    -> {"perf-b20": launches}, the JSON of its last line."""
+    try:
+        rc = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    out.seek(0)
+    lines = out.read().splitlines()
+    out.close()
+    for line in lines:
+        log(line)
+    if rc != 0:
+        raise AssertionError(f"the perf-b20 process {'timed out' if rc is None else 'failed'}"
+                             f" (exit {rc})")
+    return json.loads(lines[-1])
+
+
+def perf_b20_main() -> int:
+    """The perf-b20 process: `phase_perf_b20` on the first card; its last
+    line is {"perf-b20": launches}."""
+    sys.path.insert(0, ROOT)
+    import torch
+    global CARD
+    CARD = _smi("name,power.limit")
+    launches, _ = phase_perf_b20(torch.device("cuda", 0))
+    log(json.dumps(launches))
+    return 0
+
+
 def phase_mesh_kernels(device):
     """The LDE kernels at the mesh paths' shard shapes, rate 3: K2-nat at
     mesh-step's [136, 2^12] (one shard) and [34, 2^12] (four); K2-rev at
@@ -1184,7 +1389,25 @@ def main() -> int:
     import torch
     name, sm_hz = phase_device()
     device = torch.device("cuda", 0)
-    phase_build()
+    # the reference perf binary's batch of 20 through the port's perf
+    # driver, in a second process from here to the end (its first kernel
+    # launch comes minutes after the kernels' build below)
+    deadline = time.perf_counter() + PERF_B20_TIMEOUT_S
+    perf_proc, perf_out = start_perf_b20()
+    try:
+        phase_build()
+        return run_paths(device, name, sm_hz, perf_proc, perf_out, deadline)
+    finally:
+        if perf_proc.poll() is None:
+            perf_proc.kill()
+            perf_proc.wait()
+
+
+def run_paths(device, name: str, sm_hz: float, perf_proc, perf_out, deadline: float) -> int:
+    """Every phase after the kernels' build, the perf-b20 process running
+    beside them; its result is read at the end (`finish_perf_b20`)."""
+    import torch
+    t_start = time.perf_counter()
     phase_field(device)
     k1 = phase_k1(device)
     k2_rev, k2_nat = phase_k2(device)
@@ -1195,12 +1418,13 @@ def main() -> int:
                                          build_mixed_small, build_poseidon_chain,
                                          build_smt_process, build_u32_mix)
     paths, common, trees, circuits = {}, {}, {}, {}
-    for path, build in (("config1", lambda: build_poseidon_chain(12)),
-                        ("config2", lambda: build_u32_mix(13)),
-                        ("config3", lambda: build_smt_process(14)),
-                        ("config4", lambda: build_ecdsa(1))):
+    for path, key, build in (("config1", "config1", lambda: build_poseidon_chain(12)),
+                             ("config2", "config2", lambda: build_u32_mix(13)),
+                             ("config3", "config3", lambda: build_smt_process(14)),
+                             ("config4", "config4", lambda: build_ecdsa(1)),
+                             ("config4-b2", "config4_b2", lambda: build_ecdsa(2))):
         launches, common[path], trees[path], loaded = phase_config(path, device, build,
-                                                                   fixture(path))
+                                                                   fixture(key))
         paths.update(launches)
         if path in ("config1", "config3"):
             circuits[path] = (*loaded, path)
@@ -1229,7 +1453,7 @@ def main() -> int:
     paths.update(launches)
     log_z_spans(trees)
     held = {"K2-rev": k2_rev, "K3": k3}
-    for path in ("keccak4", "config4", "mixed_small", "lookup8"):
+    for path in ("keccak4", "config4", "config4-b2", "mixed_small", "lookup8"):
         key, out = phase_commits(device, path, common[path])
         held[key].update(out)
     # config 5: the inner circuit, its proofs and the outer trace are one
@@ -1242,8 +1466,12 @@ def main() -> int:
         "config5", device, lambda: (b5, inputs5, {"name": "aggregation_4"}),
         fixture("config5")["outer"])
     paths.update(launches)
+    log(f"[perf-b20] the other paths took {time.perf_counter() - t_start:.1f} s; waiting "
+        f"for the perf-b20 process")
+    paths.update(finish_perf_b20(perf_proc, perf_out, deadline))
     required = {"config1": ("K1", "K2-rev"), "config2": ("K1", "K2-rev"),
                 "config3": ("K1", "K3"), "config4": ("K1", "K3"),
+                "config4-b2": ("K1", "K3"),
                 "config5": ("K1", "K2-rev"), "config1-p2": ("K1", "K2-rev"),
                 "keccak4": ("K3",), "mixed_small": ("K1", "K2-rev"),
                 "lookup8": ("K1", "K2-rev")}
@@ -1251,7 +1479,8 @@ def main() -> int:
     required["config5-inner"] = ("K1", "K2-rev")
     required.update({"mesh-step-d1": ("K1", "K2-nat"), "mesh-step": ("K1", "K2-nat"),
                      "mesh-config1-d1": ("K1", "K2-rev"), "mesh-config1": ("K1", "K2-rev"),
-                     "mesh-config3": ("K1", "K3"), "mesh-mixed_small": ("K1", "K2-rev")})
+                     "mesh-config3": ("K1", "K3"), "mesh-mixed_small": ("K1", "K2-rev"),
+                     "perf-b20": ("K1", "K3")})
     for path, kernels in required.items():
         for k in kernels:
             if paths[path][k] <= 0:
@@ -1265,6 +1494,9 @@ def main() -> int:
         ("K1", "poseidon permute_cols [12, 131072] (config 3 leaf hashing)",
          "plonky2_tpu_torch/csrc/poseidon.cu", "plonky2_tpu/hashes/pallas_poseidon.py:191",
          k1[1 << 17], poseidon_work(1 << 17), None),
+        ("K1", "poseidon permute_cols [12, 8388608] (perf-b20 leaf hashing)",
+         "plonky2_tpu_torch/csrc/poseidon.cu", "plonky2_tpu/hashes/pallas_poseidon.py:191",
+         k1[1 << 23], poseidon_work(1 << 23), ("perf-b20",)),
         ("K2-rev", "lde_from_values_rev [135, 4096] rate 3 (config 1 wires)",
          "plonky2_tpu_torch/csrc/lde.cu", "plonky2_tpu/ntt/pallas_lde.py:316",
          k2_rev[(135, 4096, 3)], lde_work(135, 4096, 3, k2_table_words(12, 3)),
@@ -1317,6 +1549,14 @@ def main() -> int:
          "plonky2_tpu_torch/csrc/lde_tiled.cu", "plonky2_tpu/ntt/pallas_lde_tiled.py:338",
          k3[(136, 1 << 16, 3)], lde_work(136, 1 << 16, 3, k3_table_words(16, 3)),
          ("config4", "config4-load")),
+        ("K3", "lde_from_values_tiled_rev [136, 131072] rate 3 (config4-b2 wires)",
+         "plonky2_tpu_torch/csrc/lde_tiled.cu", "plonky2_tpu/ntt/pallas_lde_tiled.py:338",
+         k3[(136, 1 << 17, 3)], lde_work(136, 1 << 17, 3, k3_table_words(17, 3)),
+         ("config4-b2", "config4-b2-load")),
+        ("K3", "lde_from_values_tiled_rev [136, 1048576] rate 3 (perf-b20 wires)",
+         "plonky2_tpu_torch/csrc/lde_tiled.cu", "plonky2_tpu/ntt/pallas_lde_tiled.py:338",
+         k3[(136, 1 << 20, 3)], lde_work(136, 1 << 20, 3, k3_table_words(20, 3)),
+         ("perf-b20",)),
     ]
     def report(key, label, ms, nbytes, imads):
         bound_ms, bound_by = bound(nbytes, imads, sm_hz)
@@ -1345,4 +1585,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(perf_b20_main() if PERF_B20_FLAG in sys.argv[1:] else main())

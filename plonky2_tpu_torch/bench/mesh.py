@@ -25,18 +25,12 @@ import torch
 FIRST_CARD = torch.device("cuda", 0)
 
 
-def _launches() -> dict:
-    from ..hashes import cuda_poseidon
-    from ..ntt import cuda_lde, cuda_lde_tiled
-    return {"K1": cuda_poseidon.LAUNCHES, "K2-rev": cuda_lde.LAUNCHES,
-            "K2-nat": cuda_lde.LAUNCHES_NAT, "K3": cuda_lde_tiled.LAUNCHES}
-
-
 def main() -> int:
     from .. import utils
     from ..parallel import Mesh, make_prover_mesh
     from ..serialization import serialize_proof
-    from . import build_mixed_small, build_poseidon_chain, build_smt_process
+    from . import (build_mixed_small, build_poseidon_chain, build_smt_process,
+                   kernel_launches)
     builds = {"1": lambda: build_poseidon_chain(12), "3": lambda: build_smt_process(14),
               "mixed_small": build_mixed_small}
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -60,7 +54,7 @@ def main() -> int:
         raw = None
         for label, mesh in (("unsharded", None),) + meshes:
             for kind in ("first", "warm"):
-                before = _launches()
+                before = kernel_launches()
                 utils.profiling_enable()
                 t0 = time.perf_counter()
                 proof = data.prove(inputs, mesh=mesh)
@@ -74,7 +68,7 @@ def main() -> int:
                     raise AssertionError(f"config {config}: the proof on {label} differs "
                                          f"from the unsharded proof")
                 data.verify(proof)
-                launches = {k: v - before[k] for k, v in _launches().items()}
+                launches = {k: v - before[k] for k, v in kernel_launches().items()}
                 print(f"config {config} ({meta['name']}, 2^{data.common.degree_bits} "
                       f"rows), {label}, {kind} prove: {wall:.3f} s; {len(raw)} bytes, "
                       f"the unsharded proof's, verified; launches "

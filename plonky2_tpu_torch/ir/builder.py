@@ -56,12 +56,17 @@ class CircuitBuilder:
         return [self.add_virtual_target() for _ in range(n)]
 
     def _find(self, x):
+        """x's class representative, the same root as the JAX builder's.
+        Every node on x's path is pointed at the root (the JAX builder's
+        `x, p[x] = p[x], root` assigns x first, so it repoints only x's
+        parent and leaves the chains that a long run of `connect` builds
+        for the next call to walk again)."""
         p = self._parent
         root = x
         while root in p:
             root = p[root]
-        while x in p and p[x] != root:
-            x, p[x] = p[x], root
+        while x != root:
+            p[x], x = root, p[x]
         return root
 
     def connect(self, a, b):

@@ -20,24 +20,26 @@ def graph_digest(builder) -> str:
     and constants, the public inputs, the copy classes (each class its
     members' reprs, sorted) and, where the builder has lookup tables, each
     table's pairs and its (input, output) uses in order."""
-    # The builder's `_parent` is a union-find forest; its roots are found
-    # here with memoised paths (the builder's `_find` compresses one link a
-    # call, which is quadratic on the long chains of a 2^16-row circuit).
+    # The builder's `_parent` is a union-find forest (the JAX builder's
+    # `_find` compresses one link a call, so its chains are long): each
+    # key's root is found once, its path memoised, in one loop (a batch-20
+    # ECDSA builder has about 24 M keys).
     parent, root = builder._parent, {}
-
-    def find(x):
-        path = []
-        while x not in root and x in parent:
+    for t in parent:
+        if t in root:
+            continue
+        path, x = [t], parent[t]
+        while x in parent and x not in root:
             path.append(x)
             x = parent[x]
         r = root.get(x, x)
         for y in path:
             root[y] = r
-        return r
-
     classes: dict = {}
-    for t in set(parent) | set(parent.values()):
-        classes.setdefault(find(t), []).append(repr(t))
+    for t, r in root.items():
+        classes.setdefault(r, []).append(repr(t))
+    for r in set(root.values()):             # the roots, members of their classes
+        classes[r].append(repr(r))
     graph = {
         "rows": [[g.key(), [int(c) for c in cs]]
                  for g, cs in builder.gate_instances],

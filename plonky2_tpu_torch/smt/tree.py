@@ -69,6 +69,19 @@ class RootDataMemory:
         self.roots.append(root)
 
 
+class RootDataTmp:
+    """Single-slot root store (the reference's smt/mod.rs:135-156)."""
+
+    def __init__(self, root: HashOut = ZERO_HASH):
+        self.root = root
+
+    def get(self) -> HashOut:
+        return self.root
+
+    def set(self, root: HashOut) -> None:
+        self.root = root
+
+
 class SparseMerkleTree:
     def __init__(self, nodes_db=None, roots_db=None, hasher=PoseidonNodeHash):
         self.nodes_db = nodes_db if nodes_db is not None else NodeDataMemory()

@@ -9,6 +9,7 @@ and forces no synchronisation.
 
 Spans are recorded in `last_tree()` as well as logged, so a caller (the
 chip smoke run) can print the per-phase split of the last prove.
+`TimingTree` is the explicit-handle form: a root that the caller holds.
 """
 
 from __future__ import annotations
@@ -105,3 +106,32 @@ def timed_span(name: str, nbytes: int | None = None):
             _LAST[:] = [span]
             for line in span.lines():
                 logger.debug(line)
+
+
+class TimingTree:
+    """Explicit-handle variant for callers that want the tree object
+    (`with TimingTree("prove") as t: ... ; t.print()`): the spans opened
+    inside the block, while profiling is on, become the root's children."""
+
+    def __init__(self, name: str):
+        self.root = _Span(name)
+
+    def __enter__(self):
+        _STACK.append(self.root)
+        return self
+
+    def __exit__(self, *exc):
+        if _ENABLED:
+            sync_cards()
+        self.root.elapsed = time.perf_counter() - self.root.start
+        _STACK.pop()
+        return False
+
+    @contextlib.contextmanager
+    def span(self, name: str):
+        with timed_span(name):
+            yield
+
+    def print(self, emit=print):
+        for line in self.root.lines():
+            emit(line)

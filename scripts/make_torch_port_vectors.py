@@ -1,7 +1,7 @@
 """Write tests/torch_port_vectors.json: the JAX package's proof digests
 that the PyTorch port (`plonky2_tpu_torch`) must reproduce byte for byte.
 
-Twenty-one entries.  Nineteen are circuits, built, proved and verified
+Twenty-three entries.  Twenty are circuits, built, proved and verified
 with the JAX package on the CPU:
 
 * `tiny`: the golden tiny circuit of tests/test_golden_vectors.py (its
@@ -22,6 +22,8 @@ with the JAX package on the CPU:
   2^7 rows (the CPU tests in tests/test_torch_u32.py);
 * `config4`: `bench.circuits.build_ecdsa(1)` under `standard_ecc_config`
   (one secp256k1 ECDSA verify, 136 wires, degree 2^16);
+* `config4_b2`: `build_ecdsa(2)`, two verifies, degree 2^17 (the perf
+  driver's default batch; proved on the card by `chip_smoke.py`);
 * `small_ecc`: secp256k1 curve_add, curve_double, a RandomAccessGate
   select over four points and the GLV scalar split under `test_config`,
   at 2^9 rows (the CPU tests in tests/test_torch_ecdsa.py);
@@ -56,6 +58,12 @@ with the JAX package on the CPU:
   the JAX builder: 47,616 lookups into a 256-entry 8-bit S-box under
   `standard_recursion_config`, 2^13 rows.
 
+`config4_b20` is `build_ecdsa(20)`, the reference perf binary's default
+batch (2^20 rows), traced and not built (the JAX package cannot build or
+prove it on a CPU in reasonable time): its batch, gate count and graph
+digest, which `chip_smoke.py` holds the port's builder to before it
+proves the circuit on the card.
+
 The other two are the JAX package's `parallel.sharded_prove_step` (one
 sharded commit and constraint pass) on its 8-device CPU mesh, for wires
 drawn by `mesh_step_wires` from `np.random.RandomState(0)`, rate 3:
@@ -75,7 +83,7 @@ serialized verifier key, `prover_data_sha256` (the sha256 of
 `wire_matrix_sha256` (the sha256 of the witness's [num_wires, n] uint64
 wire matrix, little-endian, row by row, as the JAX prover's phase 1
 computes it: `generate_witness_tape`, `scatter`, then every gate's
-batched `aux_fill`).  `config4`, `small_ecc`, the two outer circuits and the three
+batched `aux_fill`).  `config4`, `config4_b2`, `small_ecc`, the two outer circuits and the three
 lookup circuits also carry `graph_sha256`
 (`plonky2_tpu_torch.ir.digest.graph_digest`; `keccak4` too): a
 digest of the builder's graph that a test can recompute from the port's
@@ -435,7 +443,7 @@ def lookup8(ir, degree_bits: int = 13):
     return b, {x: rng.randrange(256) for x in xs}
 
 
-GRAPH_DIGESTED = ("config4", "small_ecc", "small_recursion", "config5",
+GRAPH_DIGESTED = ("config4", "config4_b2", "small_ecc", "small_recursion", "config5",
                   "small_lookup", "mixed_small", "lookup8")
 
 
@@ -585,6 +593,7 @@ def _circuits(ir):
         "small_u32": lambda: small_u32(ir),
         "small_ecc": lambda: small_ecc(ir),
         "config4": lambda: build_ecdsa(1)[:2],
+        "config4_b2": lambda: build_ecdsa(2)[:2],
         "small_ext": lambda: small_ext(ir),
         "small_poseidon2": lambda: small_poseidon2(ir),
         "config1_p2": lambda: small_chain(ir, 12,
@@ -624,14 +633,25 @@ def mesh_step(shape, cap_height: int, rate_bits: int = 3) -> dict:
             "sample_sha256": hashlib.sha256(sample.tobytes()).hexdigest()}
 
 
+def config4_b20(ir) -> dict:
+    """`build_ecdsa(20)`, the reference perf binary's default batch: its
+    gate count and graph digest, traced without a build (the JAX package
+    cannot build or prove 2^20 rows on a CPU in reasonable time)."""
+    from plonky2_tpu.bench.circuits import build_ecdsa
+    from plonky2_tpu_torch.ir.digest import graph_digest
+    b = build_ecdsa(20)[0]
+    return {"batch": 20, "num_gates": b.num_gates(), "graph_sha256": graph_digest(b)}
+
+
 # Entries recorded by a function of their own: {"inner": ..., "outer": ...}
 # (an inner circuit proved, then an outer circuit verifying it), two small
-# Keccak circuits, one circuit proved for several witnesses, or one
-# sharded step on the JAX mesh.
+# Keccak circuits, one circuit proved for several witnesses, one sharded
+# step on the JAX mesh, or a graph digest alone.
 OWN_RECORD = {"small_recursion": small_recursion, "config5": config5,
              "small_keccak": small_keccak, "keccak4": keccak4,
              "mesh_step_small": lambda ir: mesh_step((8, 32), 2),
-             "mesh_step": lambda ir: mesh_step((136, 1 << 12), 4)}
+             "mesh_step": lambda ir: mesh_step((136, 1 << 12), 4),
+             "config4_b20": config4_b20}
 
 
 def load_fixture() -> dict:

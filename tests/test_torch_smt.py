@@ -78,6 +78,59 @@ def test_sparse_merkle_tree_equals_jax():
         smt.verify_smt_inclusion_proof(smt.PoseidonNodeHash, bad, num_levels=32)
 
 
+def test_hash_out_serde_equals_jax():
+    """The reference's serde forms of a HashOut (32 bytes little-endian and
+    0x-prefixed big-endian hex) equal the JAX package's, both ways, on
+    seeded values with the field's edges; both reject what is not one."""
+    from plonky2_tpu.smt import hash_out as jhash_out
+    rng = random.Random(0x5E8)
+    values = [smt.ZERO_HASH, (gl.P - 1,) * 4, (1, 0, 0, gl.P - 1)]
+    values += [tuple(rng.randrange(gl.P) for _ in range(4)) for _ in range(20)]
+    for h in values:
+        raw, hx = smt.to_bytes_le(h), smt.to_hex(h)
+        assert raw == jhash_out.to_bytes_le(h)
+        assert hx == jhash_out.to_hex(h)
+        assert smt.from_bytes_le(raw) == jhash_out.from_bytes_le(raw) == h
+        assert smt.from_hex(hx) == jhash_out.from_hex(hx) == h
+        # hex without its leading zeros reads back the same
+        short = "0x" + hx[2:].lstrip("0")
+        assert smt.from_hex(short) == jhash_out.from_hex(short) == h
+    not_canonical = gl.P.to_bytes(8, "little") + bytes(24)
+    for bad in (bytes(31), not_canonical):
+        with pytest.raises(ValueError):
+            smt.from_bytes_le(bad)
+        with pytest.raises(AssertionError):
+            jhash_out.from_bytes_le(bad)
+    with pytest.raises(ValueError):
+        smt.from_hex("00" * 32)
+
+
+def test_root_data_tmp_equals_jax():
+    """A tree over the single-slot root store gives the JAX tree's roots
+    and proofs, and the store keeps only the latest root."""
+    from plonky2_tpu.smt.tree import RootDataTmp as JRootDataTmp
+    rng = random.Random(0x5E9)
+
+    def rand_hash():
+        return tuple(rng.randrange(gl.P) for _ in range(4))
+
+    store, jstore = smt.RootDataTmp(), JRootDataTmp()
+    tree = smt.SparseMerkleTree(roots_db=store)
+    jtree = jsmt.SparseMerkleTree(roots_db=jstore)
+    assert store.get() == jstore.get() == smt.ZERO_HASH
+    keys = [rand_hash() for _ in range(6)]
+    for op, key, value in ([("insert", k, rand_hash()) for k in keys]
+                           + [("update", keys[2], rand_hash()), ("remove", keys[4], None)]):
+        args = (key,) if value is None else (key, value)
+        got = getattr(tree, op)(*args)
+        want = getattr(jsmt.SparseMerkleTree, op)(jtree, *args)
+        assert _proof_fields(got) == _proof_fields(want), op
+        assert store.get() == jstore.get() == got.new_root
+        assert vars(store) == vars(jstore)
+    start = rand_hash()
+    assert smt.RootDataTmp(start).get() == JRootDataTmp(start).get() == start
+
+
 def test_base_sum_gate_eval_forms_and_generator_agree():
     L, m = 64, 9
     rng = np.random.RandomState(0xBA5E)
