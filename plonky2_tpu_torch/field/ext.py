@@ -128,11 +128,22 @@ def inv(a):
     return torch.stack([gl.mul(a0, ninv), gl.mul(gl.neg(a1), ninv)], dim=-1)
 
 
-def powers_s(base, n: int, device="cpu"):
-    """[base^0 .. base^(n-1)] as an (n, 2) tensor (host-computed)."""
-    out = []
-    cur = ONE
-    for _ in range(n):
-        out.append(cur)
-        cur = mul_s(cur, base)
-    return gl.to_tensor(out, device)
+def _host_powers(base, k: int):
+    """[base^0 .. base^(k-1)] as a list of scalars."""
+    out = [ONE]
+    for _ in range(k - 1):
+        out.append(mul_s(out[-1], base))
+    return out
+
+
+def powers(base, n: int, device="cpu"):
+    """[base^0 .. base^(n-1)] as an (n, 2) tensor on `device`.
+
+    Row i = m*j + r holds (base^m)^j * base^r, m = 2^ceil(log2(n)/2): two
+    host tables of about sqrt(n) powers each, copied over, and one broadcast
+    product on the device."""
+    m = 1 << ((n - 1).bit_length() + 1) // 2
+    lo = _host_powers(base, m)
+    hi = _host_powers(mul_s(lo[-1], base), -(-n // m))
+    table = mul(gl.to_tensor(hi, device)[:, None], gl.to_tensor(lo, device)[None])
+    return table.reshape(-1, 2)[:n]

@@ -196,13 +196,15 @@ def lde_from_values_rev_auto(values, rate_bits: int, shift: int = COSET_SHIFT):
     raise ValueError(f"no LDE for device {values.device}")
 
 
-def eval_polys_at_ext(coeffs, point):
+def eval_polys_at_ext(coeffs, point, pows=None):
     """Evaluate base-field polys [..., n] at one extension point (c0, c1).
 
     Returns [..., 2]: one broadcast multiply by the point's powers, then a
-    modular tree sum over the coefficient axis."""
+    modular tree sum over the coefficient axis.  `pows`: the point's [n, 2]
+    power table on the coefficients' device (`ext.powers`), built here when
+    not given."""
     from ..field import ext
-    n = coeffs.shape[-1]
-    pows = ext.powers_s(point, n, coeffs.device)           # [n, 2]
+    if pows is None:
+        pows = ext.powers(point, coeffs.shape[-1], coeffs.device)
     prod = ext.mul_base(pows, coeffs)                      # [..., n, 2]
     return gl.sum_mod(prod, dim=-2)

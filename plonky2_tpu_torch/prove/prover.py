@@ -663,29 +663,30 @@ def _prove_impl(pd, inputs: dict, mesh=None) -> Proof:
     g = gl.primitive_root_of_unity(common.degree_bits)
     zeta_next = ext.scalar_mul_s(zeta, g)
 
-    def open_at(coeffs, point):
-        arr = gl.from_tensor(eval_polys_at_ext(coeffs, point))
-        return [(int(a), int(b)) for a, b in arr]
-
-    def open_shards(shards, point):
-        """Each poly shard at `point` on its device, in polynomial order."""
-        return [v for s in shards for v in open_at(s, point)]
-
     with timed_span("openings at zeta"):
+        # the polynomials opened at zeta, each a list of shards
         if mesh is None:
-            cs_open = open_at(pd.cs_coeffs, zeta)
-            wires_open = open_at(wires_coeffs, zeta)
-            zs_pp_open = open_at(zs_pp_coeffs, zeta)
-            zs_next_open = open_at(zs_pp_coeffs[kernels.r1_idx], zeta_next)
-            q_open = open_at(q_polys, zeta)
+            at_zeta = [[pd.cs_coeffs], [wires_coeffs], [zs_pp_coeffs], [q_polys]]
+            zs_r1 = zs_pp_coeffs[kernels.r1_idx]
         else:
-            cs_open = open_shards(mesh.unpad(mesh.polys(pd.cs_coeffs),
-                                             pd.cs_coeffs.shape[0]), zeta)
-            wires_open = open_shards(wires_coeffs, zeta)
-            zs_pp_open = open_shards(zs_pp_coeffs, zeta)
-            zs_next_open = open_at(mesh.gather(zs_pp_coeffs, dim=0)[kernels.r1_idx],
-                                   zeta_next)
-            q_open = open_shards(mesh.unpad(mesh.polys(q_polys), q_polys.shape[0]), zeta)
+            at_zeta = [mesh.unpad(mesh.polys(pd.cs_coeffs), pd.cs_coeffs.shape[0]),
+                       wires_coeffs, zs_pp_coeffs,
+                       mesh.unpad(mesh.polys(q_polys), q_polys.shape[0])]
+            zs_r1 = mesh.gather(zs_pp_coeffs, dim=0)[kernels.r1_idx]
+        with timed_span("openings: point powers"):
+            # one table per (point, device), shared by every call at that point
+            devs = dict.fromkeys(s.device for shards in at_zeta for s in shards)
+            pows = {(zeta, d): ext.powers(zeta, n, d) for d in devs}
+            pows[zeta_next, zs_r1.device] = ext.powers(zeta_next, n, zs_r1.device)
+
+        def open_at(shards, point):
+            """Each poly shard at `point` on its device, in polynomial order."""
+            return [(int(a), int(b)) for s in shards for a, b in gl.from_tensor(
+                eval_polys_at_ext(s, point, pows[point, s.device]))]
+
+        with timed_span("openings: products + sums"):
+            cs_open, wires_open, zs_pp_open, q_open = (open_at(s, zeta) for s in at_zeta)
+            zs_next_open = open_at([zs_r1], zeta_next)
 
     openings = OpeningSet(cs_open, wires_open, zs_pp_open, zs_next_open, q_open)
     for e in openings.observe_order():

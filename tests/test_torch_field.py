@@ -13,6 +13,7 @@ import torch
 
 from plonky2_tpu.field import ext as jext
 from plonky2_tpu.field import gl as jgl
+from plonky2_tpu_torch import ntt
 from plonky2_tpu_torch.field import ext, gl
 
 P = gl.P
@@ -99,6 +100,24 @@ def test_gl_powers_and_roundtrip():
     assert t.dtype == torch.int64
     assert np.array_equal(gl.from_tensor(t), vals)
     assert gl.to_i64(2**64 - 1) == -1 and gl.to_i64(2**63) == -(2**63)
+
+
+@pytest.mark.parametrize("base", [(0, 0), (1, 0), (P - 2, 0), (2**63 + 5, P - 1),
+                                  (123456789, 2**32 + 1)])
+@pytest.mark.parametrize("n", [1, 2, 3, 127, 1 << 12, 1 << 16])
+def test_ext_powers_equal_host_loop(n, base):
+    # ext.powers builds base^(m*j + r) from two ~sqrt(n) host tables and one
+    # product; every row must equal the plain loop of n products
+    want, cur = [], ext.ONE
+    for _ in range(n):
+        want.append(cur)
+        cur = ext.mul_s(cur, base)
+    pows = ext.powers(base, n, "cpu")
+    assert pows.shape == (n, 2)
+    assert np.array_equal(gl.from_tensor(pows), np.asarray(want, dtype=np.uint64))
+    coeffs = gl.to_tensor(_inputs(16, n=n)[0][-n:].reshape(1, n))
+    assert torch.equal(ntt.eval_polys_at_ext(coeffs, base, pows=pows),
+                       ntt.eval_polys_at_ext(coeffs, base))
 
 
 @pytest.mark.parametrize("name", ["add", "sub", "mul", "sqr", "inv", "mul_base",

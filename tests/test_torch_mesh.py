@@ -31,7 +31,7 @@ import pytest
 import torch
 
 from plonky2_tpu_torch.bench import build_mixed_small, build_poseidon_chain
-from plonky2_tpu_torch.field import gl
+from plonky2_tpu_torch.field import ext, gl
 from plonky2_tpu_torch.hashes import poseidon
 from plonky2_tpu_torch.ir import CircuitConfig
 from plonky2_tpu_torch.merkle import MerkleTree, ShardedMerkleTree
@@ -201,6 +201,26 @@ def test_small_chain_mesh_proof_equals_fixture(small_chain, d):
     raw = serialize_proof(proof)
     assert (len(raw), _sha(raw)) == (want["proof_len"], want["proof_sha256"])
     data.verify(proof)
+
+
+@pytest.mark.parametrize("d", [None, 2])
+def test_openings_build_two_power_tables_a_prove(small_chain, d, monkeypatch):
+    # one table for zeta and one for zeta*g, shared by the five openings
+    data, inputs = small_chain
+    built = []
+    make = ext.powers
+
+    def counted(*args):
+        built.append(args)
+        return make(*args)
+
+    monkeypatch.setattr(ext, "powers", counted)
+    assert not hasattr(ext, "powers_s")        # the n-product host loop is gone
+    proof = data.prove(inputs, mesh=None if d is None else _cpu_mesh(d))
+    assert len(built) == 2
+    raw = serialize_proof(proof)
+    want = _fixture("small_chain")
+    assert (len(raw), _sha(raw)) == (want["proof_len"], want["proof_sha256"])
 
 
 def test_mixed_small_mesh_proof_equals_fixture():
